@@ -8,28 +8,42 @@ Ported so far: the fused SQN engine's main path — SQN config and state,
 the collapsed cached two-loop on a hand-written Hopper kernel
 (``ops/kernels/two_loop_kernel.py``, ``csrc/direction_streamed.cu``), the
 block-layout pair commit, the logistic losses and
-``FusedTrainer("SQN")``.  ROADMAP.md lists what comes next.
+``FusedTrainer("SQN")`` — and the fused adaQN engine: adaQN config and
+state with the Fisher ring, the AdaGrad / RMSProp accumulators, the
+empirical-Fisher ``y``, the diagonal-H0 two-loop with its projection on a
+hand-written Hopper kernel (``csrc/project_adaqn.cu``) and
+``FusedTrainer("adaQN")``.  ROADMAP.md lists what comes next.
 """
-from stochqn_tpu_torch.convert import sqn_state_from_numpy, sqn_state_to_numpy
-from stochqn_tpu_torch.core.config import SQNConfig
+from stochqn_tpu_torch.convert import (adaqn_state_from_numpy,
+                                       adaqn_state_to_numpy,
+                                       fisher_memory_from_numpy,
+                                       fisher_memory_to_numpy,
+                                       sqn_state_from_numpy,
+                                       sqn_state_to_numpy)
+from stochqn_tpu_torch.core.config import AdaQNConfig, SQNConfig
 from stochqn_tpu_torch.core.enums import Info, Task
-from stochqn_tpu_torch.core.state import BFGSMemory, SQNState
+from stochqn_tpu_torch.core.state import (AdaQNState, BFGSMemory,
+                                          FisherMemory, SQNState)
 from stochqn_tpu_torch.fused import FusedTrainer, batchify
 from stochqn_tpu_torch.models import losses
 from stochqn_tpu_torch.ops.kernels.two_loop_kernel import (
-    direction_streamed, direction_streamed_ref)
+    direction_streamed, direction_streamed_ref, project_adaqn,
+    project_adaqn_ref)
 from stochqn_tpu_torch.ops.pairs import (commit_pair, conditional_flush,
-                                         direction_is_bad)
+                                         direction_is_bad, fisher_y)
 from stochqn_tpu_torch.ops.two_loop import two_loop_cached
 
 __all__ = [
     "Task", "Info",
-    "SQNConfig",
-    "BFGSMemory", "SQNState",
+    "SQNConfig", "AdaQNConfig",
+    "BFGSMemory", "SQNState", "FisherMemory", "AdaQNState",
     "FusedTrainer", "batchify",
     "losses",
-    "commit_pair", "conditional_flush", "direction_is_bad",
+    "commit_pair", "conditional_flush", "direction_is_bad", "fisher_y",
     "two_loop_cached",
     "direction_streamed", "direction_streamed_ref",
+    "project_adaqn", "project_adaqn_ref",
     "sqn_state_from_numpy", "sqn_state_to_numpy",
+    "adaqn_state_from_numpy", "adaqn_state_to_numpy",
+    "fisher_memory_from_numpy", "fisher_memory_to_numpy",
 ]

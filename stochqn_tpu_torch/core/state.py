@@ -1,7 +1,8 @@
 """Optimizer state: dataclasses of tensors.
 
 Counterpart of :mod:`stochqn_tpu.core.state` (block-layout
-:class:`BFGSMemory` and :class:`SQNState`).  Field names, shapes and
+:class:`BFGSMemory`, :class:`SQNState`, :class:`FisherMemory` and
+:class:`AdaQNState`).  Field names, shapes and
 meanings are the same; the differences are PyTorch idiom:
 
 * integer scalars and the permutation (``head``, ``count``, ``perm``,
@@ -12,7 +13,8 @@ meanings are the same; the differences are PyTorch idiom:
   moves it;
 * the ring rows ``s``/``y`` are updated in place by
   :func:`stochqn_tpu_torch.ops.pairs.commit_pair`, so a memory passed to a
-  commit is consumed (see there).
+  commit is consumed (see there); so is the Fisher ring row written by
+  :meth:`FisherMemory.append` in ring mode.
 
 Every field owns its own buffer (the rule behind the JAX package's
 ``_own``): :meth:`SQNState.create` copies ``x0`` and allocates one
@@ -140,4 +142,113 @@ class SQNState:
         )
 
     def replace(self, **changes) -> "SQNState":
+        return dataclasses.replace(self, **changes)
+
+
+# Above this Fisher-buffer size the per-step append writes one ring row in
+# place; at or below it the append rewrites the buffer newest row first
+# (the JAX package's gate, kept so that a converted state matches row for
+# row; its break-even was measured on the TPU and is not re-measured here).
+FISHER_SHIFT_MAX_BYTES = 8 * 1024 ** 2
+
+
+@dataclasses.dataclass
+class FisherMemory:
+    """Ring buffer of recent minibatch gradients for adaQN's empirical
+    Fisher (``fisher_mem``, ``include/stochqn.h:101-107``).
+
+    Rows are only consumed through ``F^T (F s) / count``
+    (:func:`stochqn_tpu_torch.ops.pairs.fisher_y`), so their order does
+    not matter, only occupancy.  ``shift`` (fixed at :meth:`create` by
+    :data:`FISHER_SHIFT_MAX_BYTES`) selects the append: a small buffer is
+    rebuilt as ``[g; f[:-1]]`` (newest row first), a large one has the
+    row at ``head`` overwritten in place.  Both keep the valid rows at
+    ``[0, count)`` while filling, as in the JAX package.
+    """
+
+    f: torch.Tensor       # [fisher_size, n]
+    head: torch.Tensor    # int64 scalar: next ring slot
+    count: torch.Tensor   # int64 scalar: number of valid rows
+    shift: bool = False   # append mode, see the class docstring
+
+    @classmethod
+    def create(cls, fisher_size: int, n: int, dtype=torch.float32,
+               storage_dtype=None, shift=None, device=None
+               ) -> "FisherMemory":
+        f = torch.zeros((fisher_size, n),
+                        dtype=dtype if storage_dtype is None
+                        else storage_dtype, device=device)
+        if shift is None:
+            shift = f.numel() * f.element_size() <= FISHER_SHIFT_MAX_BYTES
+        return cls(f=f,
+                   head=torch.zeros((), dtype=torch.int64, device=device),
+                   count=torch.zeros((), dtype=torch.int64, device=device),
+                   shift=bool(shift))
+
+    def flush(self) -> "FisherMemory":
+        return self.replace(head=torch.zeros_like(self.head),
+                            count=torch.zeros_like(self.count))
+
+    def append(self, grad: torch.Tensor) -> "FisherMemory":
+        """``add_to_fisher_mem`` (``src/stochqn.c:581-587``).
+
+        Ring mode writes ``self.f`` in place (``index_copy_`` at ``head``:
+        a 0-d CUDA index would be read on the host), so ``self`` is
+        consumed; shift mode builds a new buffer."""
+        size = self.f.shape[0]
+        row = grad.to(self.f.dtype)[None]
+        if self.shift:
+            f = torch.cat([row, self.f[:-1]], dim=0)
+        else:
+            f = self.f.index_copy_(0, self.head.reshape(1), row)
+        return self.replace(
+            f=f,
+            head=torch.remainder(self.head + 1, size),  # also kept in shift
+            count=torch.clamp(self.count + 1, max=size))
+
+    def replace(self, **changes) -> "FisherMemory":
+        return dataclasses.replace(self, **changes)
+
+
+@dataclasses.dataclass
+class AdaQNState:
+    """Full adaQN optimizer state (``workspace_adaQN``,
+    ``include/stochqn.h:135-151``)."""
+
+    x: torch.Tensor
+    mem: BFGSMemory
+    fisher: FisherMemory      # one row when use_grad_diff (never appended)
+    grad_prev: torch.Tensor   # [n] (used only when use_grad_diff)
+    x_sum: torch.Tensor
+    x_avg_prev: torch.Tensor
+    grad_sum_sq: torch.Tensor  # [n] AdaGrad / RMSProp accumulator
+    f_prev: torch.Tensor       # scalar: accepted function value
+    niter: torch.Tensor        # int64 scalar
+    section: torch.Tensor      # int64 scalar (0..5)
+
+    @classmethod
+    def create(cls, x0: torch.Tensor, mem_size: int,
+               fisher_size: int) -> "AdaQNState":
+        x0 = x0.detach().clone()          # owned: never the caller's buffer
+        n = x0.shape[0]
+        dev = x0.device
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=x0.dtype, device=dev)
+
+        return cls(
+            x=x0,
+            mem=BFGSMemory.create(mem_size, n, x0.dtype, device=dev),
+            fisher=FisherMemory.create(max(fisher_size, 1), n, x0.dtype,
+                                       device=dev),
+            grad_prev=zeros(n),
+            x_sum=zeros(n),
+            x_avg_prev=zeros(n),
+            grad_sum_sq=zeros(n),
+            f_prev=zeros(),
+            niter=torch.zeros((), dtype=torch.int64, device=dev),
+            section=torch.zeros((), dtype=torch.int64, device=dev),
+        )
+
+    def replace(self, **changes) -> "AdaQNState":
         return dataclasses.replace(self, **changes)

@@ -1,11 +1,19 @@
-"""Fused SQN training engine.
+"""Fused SQN and adaQN training engine.
 
-Counterpart of the SQN part of :mod:`stochqn_tpu.fused`.  An epoch runs as
-rounds of ``upd_freq`` (L) branch-free base steps — minibatch gradient,
-collapsed two-loop direction (the hand-written kernel on CUDA), NaN /
-magnitude guard, ``x`` / ``x_sum`` updates — followed once per round by the
-boundary: a Hessian-vector product (or big-batch gradient) on the round's
-L minibatches and a curvature-gated pair commit.
+Counterpart of the SQN and adaQN parts of :mod:`stochqn_tpu.fused`.  An
+epoch runs as rounds of ``upd_freq`` (L) branch-free base steps followed
+once per round by the boundary:
+
+* SQN: minibatch gradient, collapsed two-loop direction (the hand-written
+  direction kernel on CUDA), NaN / magnitude guard, ``x`` / ``x_sum``
+  updates; at the boundary a Hessian-vector product (or big-batch
+  gradient) on the round's L minibatches and a curvature-gated pair
+  commit.
+* adaQN: minibatch gradient appended to the Fisher ring, AdaGrad /
+  RMSProp rescaling, diagonal-H0 two-loop (the hand-written projection
+  kernel on CUDA with ``use_pallas=True``), guard, updates; at the
+  boundary the function-value guard on the average, then a pair commit
+  with the empirical-Fisher (or big-batch gradient-difference) ``y``.
 
 ``lax.scan`` becomes a Python loop.  Every accept/reject, flush and
 first-round decision is a device-side ``torch.where``: nothing in
@@ -14,7 +22,8 @@ the host, so the loop never waits for the device.
 
 The state is updated in place where that saves copying the pair memory:
 the boundary commit rewrites one ring row of ``mem.s`` / ``mem.y``
-(``ops.pairs.commit_pair``).  A state passed to :meth:`FusedTrainer.round`,
+(``ops.pairs.commit_pair``), and a ring-mode Fisher append one row of
+``fisher.f``.  A state passed to :meth:`FusedTrainer.round`,
 :meth:`~FusedTrainer.epoch` or :meth:`~FusedTrainer.epochs` is therefore
 consumed; use the returned one.
 
@@ -29,17 +38,19 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
-from stochqn_tpu_torch.core import sqn
-from stochqn_tpu_torch.core.config import SQNConfig
+from stochqn_tpu_torch.core import adaqn, sqn
+from stochqn_tpu_torch.core.config import AdaQNConfig, SQNConfig
 from stochqn_tpu_torch.core.enums import Info
-from stochqn_tpu_torch.core.state import SQNState
+from stochqn_tpu_torch.core.state import AdaQNState, SQNState
 from stochqn_tpu_torch.models.losses import hvp_from_grad
+from stochqn_tpu_torch.ops.accumulators import diag_rescal
 from stochqn_tpu_torch.ops.pairs import (commit_pair, conditional_flush,
-                                         direction_is_bad)
+                                         direction_is_bad, fisher_y)
 from stochqn_tpu_torch.ops.two_loop import two_loop_cached
 
 Batch = Any
 GradFn = Callable[[torch.Tensor, Batch], torch.Tensor]
+ObjFn = Callable[[torch.Tensor, Batch], torch.Tensor]
 # Optional analytic Hessian-vector product ``hess_vec_fn(x, v, batch) -> [n]``
 # (the reference's ``hess_vec_fun``, ``src/stochqn.c:1105-1111``); without
 # one the engine uses ``torch.func.jvp`` of ``grad_fn``.
@@ -48,6 +59,7 @@ HessVecFn = Callable[[torch.Tensor, torch.Tensor, Batch], torch.Tensor]
 _NO_PROB = int(Info.NO_PROBLEMS_ENCOUNTERED)
 _NAN = int(Info.SEARCH_DIRECTION_WAS_NAN)
 _CURV = int(Info.CURVATURE_TOO_SMALL)
+_FINC = int(Info.FUNC_INCREASED)
 
 
 def _tree_map(fn, batch):
@@ -68,6 +80,10 @@ def _info(bad: torch.Tensor, accepted: Optional[torch.Tensor] = None
     if accepted is not None:
         info = torch.where(accepted, info, _CURV)
     return info.to(torch.int32)
+
+
+def _no_bad(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.bool, device=x.device)
 
 
 def _step_tensor(step_size, x: torch.Tensor) -> torch.Tensor:
@@ -98,8 +114,7 @@ def _sqn_base(cfg: SQNConfig, grad_fn: GradFn, state: SQNState,
     ``upd_freq`` boundary (``src/stochqn.c:1050-1073``)."""
     g = grad_fn(state.x, batch)
     d = two_loop_cached(g, state.mem, collapsed=True)
-    bad = (direction_is_bad(d) if cfg.check_nan
-           else torch.zeros((), dtype=torch.bool, device=d.device))
+    bad = direction_is_bad(d) if cfg.check_nan else _no_bad(d)
     x_new = torch.where(bad, state.x, state.x - step_size * d)
     state = state.replace(x=x_new, mem=conditional_flush(state.mem, bad),
                           niter=state.niter + 1, x_sum=state.x_sum + x_new,
@@ -149,56 +164,168 @@ def _sqn_boundary(cfg: SQNConfig, grad_fn: GradFn, state: SQNState,
     return st, info
 
 
+def _adaqn_base(cfg: AdaQNConfig, grad_fn: GradFn, state: AdaQNState,
+                batch: Batch, step_size: torch.Tensor
+                ) -> Tuple[AdaQNState, torch.Tensor]:
+    """The per-iteration adaQN work before any ``upd_freq`` boundary
+    (``src/stochqn.c:1170-1197``), with the Fisher append per step
+    (``src/stochqn.c:1174``).  A NaN direction flushes the pair memory
+    only: the reference leaves the Fisher flush commented out
+    (``src/stochqn.c:1181``)."""
+    g = grad_fn(state.x, batch)
+    if not cfg.use_grad_diff:
+        state = state.replace(fisher=state.fisher.append(g))
+    rescaled, acc_sq = diag_rescal(g, state.grad_sum_sq, cfg.scal_reg,
+                                   cfg.rmsprop_weight)
+    h0_diag = (rescaled if cfg.h0_exact_reference
+               else torch.rsqrt(acc_sq + cfg.scal_reg))
+    d_mem = two_loop_cached(g, state.mem, diag=h0_diag,
+                            use_pallas=cfg.use_pallas, coupling=cfg.coupling)
+    d = torch.where(state.mem.count > 0, d_mem, rescaled)
+    bad = direction_is_bad(d) if cfg.check_nan else _no_bad(d)
+    x_new = torch.where(bad, state.x, state.x - step_size * d)
+    state = state.replace(x=x_new, mem=conditional_flush(state.mem, bad),
+                          grad_sum_sq=acc_sq, niter=state.niter + 1,
+                          x_sum=state.x_sum + x_new,
+                          section=torch.ones_like(state.section))
+    return state, bad
+
+
+def _adaqn_boundary(cfg: AdaQNConfig, grad_fn: GradFn,
+                    obj_fn: Optional[ObjFn], state: AdaQNState, big: Batch,
+                    fval_batch: Batch, bad: torch.Tensor
+                    ) -> Tuple[AdaQNState, torch.Tensor]:
+    """The every-``upd_freq`` adaQN work: function-value guard and pair
+    commit (``src/stochqn.c:1201-1308``).  Call exactly when
+    ``niter % upd_freq == 0``.
+
+    Branch-free like :func:`_sqn_boundary`: the first archive, the
+    ``func_increased`` rejection and the commit are device-side selects
+    and a vetoed commit.  Reference quirks kept: on a rejection ``x_sum``
+    keeps ``x_avg`` (``src/stochqn.c:1275-1283``), and with
+    ``use_grad_diff`` ``x_avg_prev`` is refreshed only on the first
+    archive (``src/stochqn.c:1265-1270``)."""
+    st = state
+    x_avg = st.x_sum * (1.0 / cfg.upd_freq)
+    is_first = st.niter == cfg.upd_freq
+    not_first = torch.logical_not(is_first)
+    base_info = _info(bad)
+
+    # function-value guard (src/stochqn.c:1272-1291)
+    if cfg.max_incr > 0:
+        f = torch.as_tensor(obj_fn(x_avg, fval_batch), dtype=st.x.dtype,
+                            device=st.x.device)
+        reject = not_first & ((f > cfg.max_incr * st.f_prev)
+                              | torch.logical_not(torch.isfinite(f)))
+        # accept (or first): record f; reject: keep f_prev
+        st = st.replace(f_prev=torch.where(reject, st.f_prev, f))
+    else:
+        reject = _no_bad(x_avg)
+
+    commit_ok = not_first & torch.logical_not(reject)
+    s_cand = x_avg - st.x_avg_prev      # garbage on the first round; vetoed
+    mem_p = st.mem.replace(s_pending=s_cand)
+    if cfg.use_grad_diff:
+        gb = grad_fn(x_avg, big)
+        mem2, acc = commit_pair(mem_p, gb - st.grad_prev, cfg.min_curvature,
+                                cfg.y_reg, enabled=commit_ok)
+        st = st.replace(
+            mem=mem2,
+            grad_prev=torch.where(is_first | acc, gb, st.grad_prev),
+            x_avg_prev=torch.where(is_first, x_avg, st.x_avg_prev))
+    else:
+        mem2, acc = commit_pair(mem_p, fisher_y(st.fisher, s_cand),
+                                cfg.min_curvature, y_reg=0.0,
+                                enabled=commit_ok)
+        st = st.replace(
+            mem=mem2,
+            x_avg_prev=torch.where(is_first | acc, x_avg, st.x_avg_prev))
+
+    # rejection: flush both memories, revert x (src/stochqn.c:1275-1283)
+    zero = torch.zeros_like(st.fisher.head)
+    st = st.replace(
+        mem=conditional_flush(st.mem, reject),
+        fisher=st.fisher.replace(
+            head=torch.where(reject, zero, st.fisher.head),
+            count=torch.where(reject, zero, st.fisher.count)),
+        x=torch.where(reject, st.x_avg_prev, st.x),
+        x_sum=torch.where(reject, x_avg, torch.zeros_like(st.x_sum)))
+    info = torch.where(reject, _FINC,
+                       torch.where(is_first | acc, base_info, _CURV))
+    return st, info.to(torch.int32)
+
+
 @dataclasses.dataclass
 class FusedTrainer:
-    """Round-chunked fused trainer (SQN only so far).
+    """Round-chunked fused trainer (SQN and adaQN so far).
 
     Args:
-      optimizer: "SQN" (oLBFGS and adaQN are ROADMAP A.11 / A.12).
-      cfg: an :class:`SQNConfig`.
+      optimizer: "SQN" or "adaQN" (oLBFGS is ROADMAP A.11).
+      cfg: the matching :class:`SQNConfig` or :class:`AdaQNConfig`.
       grad_fn: ``grad_fn(x, batch) -> [n]``.
+      obj_fn: ``obj_fn(x, batch) -> scalar`` tensor; required for adaQN
+        with ``max_incr``.
+      val_data: optional validation batch (tensors on the state's device)
+        for adaQN's function-value guard; otherwise the round's big batch
+        is used, as in the reference.
       hess_vec_fn: optional ``hess_vec_fn(x, v, big_batch) -> [n]`` used by
-        the boundary in place of ``torch.func.jvp`` of ``grad_fn``;
-        ignored with ``cfg.use_grad_diff``.
+        SQN's boundary in place of ``torch.func.jvp`` of ``grad_fn``;
+        ignored for adaQN and with ``cfg.use_grad_diff``.
     """
 
     optimizer: str
-    cfg: SQNConfig
+    cfg: Any
     grad_fn: GradFn
+    obj_fn: Optional[ObjFn] = None
+    val_data: Optional[Batch] = None
     hess_vec_fn: Optional[HessVecFn] = None
 
     def __post_init__(self):
-        if self.optimizer in ("oLBFGS", "adaQN"):
+        kind = self.optimizer
+        if kind == "oLBFGS":
             raise NotImplementedError(
-                f"{self.optimizer} is not ported yet (ROADMAP "
-                f"{'A.11, slice 3' if self.optimizer == 'oLBFGS' else 'A.12, slice 4'})")
-        if self.optimizer != "SQN":
-            raise ValueError(f"unknown optimizer {self.optimizer!r}")
-        if not isinstance(self.cfg, SQNConfig):
-            raise TypeError(f"SQN needs an SQNConfig, got {type(self.cfg)}")
+                "oLBFGS is not ported yet (ROADMAP A.11, slice 3)")
+        cfg_cls = {"SQN": SQNConfig, "adaQN": AdaQNConfig}.get(kind)
+        if cfg_cls is None:
+            raise ValueError(f"unknown optimizer {kind!r}")
+        if not isinstance(self.cfg, cfg_cls):
+            raise TypeError(f"{kind} needs an {cfg_cls.__name__}, got "
+                            f"{type(self.cfg)}")
+        if kind == "adaQN" and self.cfg.max_incr > 0 and self.obj_fn is None:
+            raise ValueError(
+                "adaQN with max_incr needs an objective function "
+                "(pass obj_fn=..., or max_incr=None to disable the "
+                "function-value guard)")
 
-    def init(self, x0, device=None) -> SQNState:
+    def init(self, x0, device=None):
         """Fresh state at ``x0`` (copied), on ``device`` (default: where
         ``x0`` is, CPU for non-tensors)."""
-        return sqn.init(torch.as_tensor(x0, device=device), self.cfg)
+        init = sqn.init if self.optimizer == "SQN" else adaqn.init
+        return init(torch.as_tensor(x0, device=device), self.cfg)
 
-    def round(self, state: SQNState, round_data, step_size
-              ) -> Tuple[SQNState, torch.Tensor]:
+    def round(self, state, round_data, step_size
+              ) -> Tuple[Any, torch.Tensor]:
         """One ``upd_freq``-sized round: L branch-free base steps, then the
         boundary once.  ``round_data`` leaves are ``[L, bs, ...]``; the
         round must start with ``niter % upd_freq == 0``.  Returns
         ``(state, infos[L])`` (int32)."""
         L = _first_leaf(round_data).shape[0]
         eta = _step_tensor(step_size, state.x)
+        base = _sqn_base if self.optimizer == "SQN" else _adaqn_base
         bads = []
         for i in range(L):
-            state, bad = _sqn_base(self.cfg, self.grad_fn, state,
-                                   _tree_map(lambda a: a[i], round_data),
-                                   eta)
+            state, bad = base(self.cfg, self.grad_fn, state,
+                              _tree_map(lambda a: a[i], round_data), eta)
             bads.append(bad)
-        state, binfo = _sqn_boundary(self.cfg, self.grad_fn, state,
-                                     _flat(round_data), bads[-1],
-                                     self.hess_vec_fn)
+        big = _flat(round_data)
+        if self.optimizer == "SQN":
+            state, binfo = _sqn_boundary(self.cfg, self.grad_fn, state, big,
+                                         bads[-1], self.hess_vec_fn)
+        else:
+            fval = self.val_data if self.val_data is not None else big
+            state, binfo = _adaqn_boundary(self.cfg, self.grad_fn,
+                                           self.obj_fn, state, big, fval,
+                                           bads[-1])
         infos = _info(torch.stack(bads))
         infos[L - 1] = binfo
         return state, infos
@@ -214,8 +341,8 @@ class FusedTrainer:
             infos.append(inf)
         return state, torch.cat(infos)
 
-    def epoch(self, state: SQNState, data, step_size, aligned=None
-              ) -> Tuple[SQNState, torch.Tensor]:
+    def epoch(self, state, data, step_size, aligned=None
+              ) -> Tuple[Any, torch.Tensor]:
         """Run one epoch over ``data`` (leaves ``[B, bs, ...]``) in the
         round-chunked layout.  Returns ``(state, infos[B])``.
 
@@ -239,8 +366,8 @@ class FusedTrainer:
                 "(ROADMAP A.10, slice 2)")
         return self._epoch_chunked(state, data, step_size, num_batches, L)
 
-    def epochs(self, state: SQNState, data, step_size, nepochs: int,
-               aligned=None) -> Tuple[SQNState, torch.Tensor]:
+    def epochs(self, state, data, step_size, nepochs: int,
+               aligned=None) -> Tuple[Any, torch.Tensor]:
         """Run ``nepochs`` epochs over the same pre-batched ``data`` — the
         counterpart of the function ``jit_epochs()`` returns in the JAX
         package.  ``step_size`` is a scalar (same step every epoch) or a

@@ -1,0 +1,34 @@
+"""AdaGrad / RMSProp squared-gradient accumulator and diagonal rescaling.
+
+Counterpart of :mod:`stochqn_tpu.ops.accumulators`: ``update_sum_sq``
+(``src/stochqn.c:720-747``) and ``diag_rescal``
+(``src/stochqn.c:762-783``), elementwise torch ops.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def update_sum_sq(grad: torch.Tensor, grad_sum_sq: torch.Tensor,
+                  rmsprop_weight: float) -> torch.Tensor:
+    """RMSProp EMA when ``0 < rmsprop_weight < 1``, else AdaGrad sum."""
+    if 0.0 < rmsprop_weight < 1.0:
+        return (rmsprop_weight * grad_sum_sq
+                + (1.0 - rmsprop_weight) * (grad * grad))
+    return grad_sum_sq + grad * grad
+
+
+def diag_rescal(grad: torch.Tensor, grad_sum_sq: torch.Tensor,
+                scal_reg: float, rmsprop_weight: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Update the accumulator, then rescale the gradient by it.
+
+    Returns ``(rescaled, new_grad_sum_sq)`` with
+    ``rescaled = grad / sqrt(new_acc + scal_reg)``.  The accumulator is
+    updated on every step, also on steps whose direction the NaN check
+    rejects later (``src/stochqn.c:765,811,818``).
+    """
+    acc = update_sum_sq(grad, grad_sum_sq, rmsprop_weight)
+    return grad * torch.rsqrt(acc + scal_reg), acc

@@ -1,25 +1,35 @@
-"""The collapsed two-loop direction kernel and its plain PyTorch version.
+"""The two-loop kernels and their plain PyTorch versions.
 
-``direction_streamed(s_mem, y_mem, grad, c, gamma)`` computes
+``direction_streamed(s_mem, y_mem, grad, c, gamma)`` computes the collapsed
+SQN direction
 
     d = gamma * g + W^T (C (W g)),   W = [s_mem; y_mem]  ([2m, n])
 
 the Hopper port of ``stochqn_tpu/ops/pallas/two_loop_kernel.py``'s
-``direction_streamed``.  The kernel is CUDA C++
-(``stochqn_tpu_torch/csrc/direction_streamed.cu``; its header says what
-bounds it and how it is built), compiled by ``nvcc`` for ``sm_90a`` at
-first use into ``stochqn_tpu_torch/build/<source hash>/`` and loaded with
-ctypes.
+``direction_streamed`` (``csrc/direction_streamed.cu``).
 
-The wrapper checks its arguments, then dispatches on the device: CPU
-tensors go to :func:`direction_streamed_ref`, CUDA tensors to the kernel.
-There is no fallback: a CUDA call that cannot launch the kernel raises.
-:data:`LAUNCHES` counts kernel launches, so a run can show that its main
-path went through the kernel.
+``project_adaqn(s_mem, y_mem, diag, grad)`` computes adaQN's projection
+
+    W g [2m],   (Y o D) g [m],   (Y o D) Y^T [m, m],   D = diag(diag)
+
+in one pass, the port of the Pallas ``project_adaqn``
+(``csrc/project_adaqn.cu``).
+
+Each source's header says what bounds its kernel and how it is designed.
+The sources are compiled by ``nvcc`` for ``sm_90a`` at first use, one
+``nvcc`` per source started together, linked into one library under
+``stochqn_tpu_torch/build/<source hash>/`` and loaded with ctypes.
+
+Each wrapper checks its arguments, then dispatches on the device: CPU
+tensors go to its plain version, CUDA tensors to the kernel.  There is no
+fallback: a CUDA call that cannot launch the kernel raises.
+:data:`LAUNCHES` and :data:`PROJECT_ADAQN_LAUNCHES` count kernel launches,
+so a run can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -32,16 +42,21 @@ import torch
 
 # Kernel launches made by :func:`direction_streamed` (one per direction).
 LAUNCHES = 0
+# Kernel launches made by :func:`project_adaqn` (one per projection).
+PROJECT_ADAQN_LAUNCHES = 0
 
 _CSRC = Path(__file__).resolve().parents[2] / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build"
-_SOURCES = ("direction_streamed.cu",)
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_SOURCES = ("direction_streamed.cu", "project_adaqn.cu")
+_COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                  "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _STORAGE = (torch.float32, torch.bfloat16)
-_MAX_MEM = 32                 # sqn_direction_max_mem() in the source
-_PARTIAL_COLS = 1024          # columns per pass-1 block, at least
-_MAX_PARTIALS = 1024          # pass-1 blocks, at most
+_MAX_MEM = 32                 # both kernels' largest m (checked at load)
+_PARTIAL_COLS = 1024          # columns per direction pass-1 block, at least
+_MAX_PARTIALS = 1024          # direction pass-1 blocks, at most
+_BLOCKS_PER_SM = 4            # projection pass-1 blocks per SM (one wave)
+_SMEM_BYTES = 48 * 1024       # static shared-memory limit of a launch
 
 _lib = None
 # (seconds, nvcc output) of the build this process made; None if the
@@ -90,6 +105,13 @@ def _check(s_mem, y_mem, grad, c, gamma):
         raise ValueError("direction_streamed: tensors must be contiguous")
 
 
+def _on_cuda(name: str, t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: CPU or CUDA tensors only, got {t.device}")
+    return t.device.type == "cuda"
+
+
 def direction_streamed(s_mem: torch.Tensor, y_mem: torch.Tensor,
                        grad: torch.Tensor, c: torch.Tensor,
                        gamma: torch.Tensor) -> torch.Tensor:
@@ -101,11 +123,8 @@ def direction_streamed(s_mem: torch.Tensor, y_mem: torch.Tensor,
     """
     global LAUNCHES
     _check(s_mem, y_mem, grad, c, gamma)
-    if s_mem.device.type == "cpu":
+    if not _on_cuda("direction_streamed", s_mem):
         return direction_streamed_ref(s_mem, y_mem, grad, c, gamma)
-    if s_mem.device.type != "cuda":
-        raise ValueError("direction_streamed: CPU or CUDA tensors only, "
-                         f"got {s_mem.device}")
     m, n = s_mem.shape
     num_partials = min(-(-n // _PARTIAL_COLS), _MAX_PARTIALS)
     fn = _library().sqn_direction_streamed
@@ -125,6 +144,91 @@ def direction_streamed(s_mem: torch.Tensor, y_mem: torch.Tensor,
     return d
 
 
+def project_adaqn_ref(s_mem: torch.Tensor, y_mem: torch.Tensor,
+                      diag: torch.Tensor, grad: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: ``Y o D`` formed, then three float32
+    products (the JAX package's XLA reference for the kernel)."""
+    wg = torch.cat([s_mem, y_mem], dim=0) @ grad
+    yd = y_mem * diag[None, :]
+    return wg, yd @ grad, yd @ y_mem.T
+
+
+def _check_adaqn(s_mem, y_mem, diag, grad):
+    tensors = (s_mem, y_mem, diag, grad)
+    dev = s_mem.device
+    if any(t.device != dev for t in tensors):
+        raise ValueError("project_adaqn: all tensors must be on one device, "
+                         f"got {[str(t.device) for t in tensors]}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("project_adaqn: all tensors must be float32, got "
+                        f"{[t.dtype for t in tensors]}")
+    if s_mem.dim() != 2 or y_mem.shape != s_mem.shape:
+        raise ValueError("project_adaqn: s_mem and y_mem must be [m, n] "
+                         f"alike, got {tuple(s_mem.shape)}, "
+                         f"{tuple(y_mem.shape)}")
+    m, n = s_mem.shape
+    if not 1 <= m <= _MAX_MEM or n < 1:
+        raise ValueError(f"project_adaqn: need 1 <= m <= {_MAX_MEM} and "
+                         f"n >= 1, got m={m}, n={n}")
+    if diag.shape != (n,) or grad.shape != (n,):
+        raise ValueError(f"project_adaqn: expected diag and grad [{n}], got "
+                         f"{tuple(diag.shape)}, {tuple(grad.shape)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("project_adaqn: tensors must be contiguous")
+
+
+def _adaqn_tile(m: int) -> int:
+    """Columns per staged tile: 256 while the 2m + 2 padded rows and the
+    row of ones fit the static shared-memory limit (m <= 22), else 128."""
+    return 256 if ((2 * m + 2) * 257 + 256) * 4 <= _SMEM_BYTES else 128
+
+
+@functools.lru_cache(maxsize=None)
+def _one_wave(device_index: int) -> int:
+    """Projection pass-1 blocks that fit the card at once."""
+    return _BLOCKS_PER_SM * torch.cuda.get_device_properties(
+        device_index).multi_processor_count
+
+
+def project_adaqn(s_mem: torch.Tensor, y_mem: torch.Tensor,
+                  diag: torch.Tensor, grad: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(W grad [2m], (Y o D) grad [m], (Y o D) Y^T [m, m])`` with
+    ``W = [s_mem; y_mem]`` and ``D = diag(diag)``.
+
+    ``s_mem``/``y_mem`` ``[m, n]``, ``diag`` and ``grad`` ``[n]``; all
+    float32, contiguous and on one device.  Returns float32 tensors (views
+    of one buffer on CUDA).
+    """
+    global PROJECT_ADAQN_LAUNCHES
+    _check_adaqn(s_mem, y_mem, diag, grad)
+    if not _on_cuda("project_adaqn", s_mem):
+        return project_adaqn_ref(s_mem, y_mem, diag, grad)
+    m, n = s_mem.shape
+    tile = _adaqn_tile(m)
+    tiles = -(-n // tile)
+    tiles_per_block = -(-tiles // _one_wave(s_mem.device.index))
+    num_partials = -(-tiles // tiles_per_block)
+    lib = _library()
+    num_outputs = 3 * m + m * (m + 1) // 2
+    with torch.cuda.device(s_mem.device):
+        out = torch.empty(3 * m + m * m, dtype=torch.float32,
+                          device=s_mem.device)
+        partials = torch.empty(num_outputs * num_partials,
+                               dtype=torch.float32, device=s_mem.device)
+        stream = torch.cuda.current_stream(s_mem.device).cuda_stream
+        err = lib.adaqn_project(s_mem.data_ptr(), y_mem.data_ptr(),
+                                diag.data_ptr(), grad.data_ptr(),
+                                out.data_ptr(), partials.data_ptr(), m, n,
+                                tile, num_partials, tiles_per_block, stream)
+    if err != 0:
+        raise RuntimeError(f"project_adaqn: kernel launch failed with CUDA "
+                           f"error {err}")
+    PROJECT_ADAQN_LAUNCHES += 1
+    return out[:2 * m], out[2 * m:3 * m], out[3 * m:].view(m, m)
+
+
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     candidates = [os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []
@@ -132,37 +236,54 @@ def _nvcc() -> str:
     for c in candidates:
         if c and os.path.isfile(c):
             return c
-    raise RuntimeError("direction_streamed: nvcc not found (set CUDA_HOME); "
-                       "the CUDA kernel is built from source at first use")
+    raise RuntimeError("two_loop_kernel: nvcc not found (set CUDA_HOME); "
+                       "the CUDA kernels are built from source at first use")
+
+
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands at once and wait for all; raise on any failure.
+    Returns their output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
 
 
 def build() -> Path:
     """Compile the kernel library unless the current sources are built, and
     return its path (``build/<hash of sources and flags>/``).
 
-    The build writes to a temporary file and renames it into place, so
-    concurrent builders never load a half-written library.
+    Each source compiles in its own ``nvcc``, all started together, and one
+    more links the objects.  The build happens in a fresh temporary
+    directory and the library is renamed into place, so concurrent
+    builders never load a half-written one.
     """
     global build_log
-    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    nvcc_flags = " ".join(_COMPILE_FLAGS + ("|",) + _LINK_FLAGS)
+    h = hashlib.sha256(nvcc_flags.encode())
     for name in _SOURCES:
         h.update((_CSRC / name).read_bytes())
     out = _BUILD / h.hexdigest()[:16] / "libstochqn_torch_kernels.so"
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp,
-           *(str(_CSRC / name) for name in _SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    build_log = (time.perf_counter() - t0, proc.stdout + proc.stderr)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [os.path.join(tmp, Path(name).stem + ".o")
+                for name in _SOURCES]
+        log = _run([[nvcc, *_COMPILE_FLAGS, "-c", "-o", obj,
+                     str(_CSRC / name)]
+                    for name, obj in zip(_SOURCES, objs)])
+        lib = os.path.join(tmp, out.name)
+        log += _run([[nvcc, *_LINK_FLAGS, "-o", lib, *objs]])
+        os.replace(lib, out)
+    build_log = (time.perf_counter() - t0, log)
     return out
 
 
@@ -170,15 +291,28 @@ def _library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn = lib.sqn_direction_streamed
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.sqn_direction_max_mem.restype = ctypes.c_int
-        if lib.sqn_direction_max_mem() != _MAX_MEM:
-            raise RuntimeError("direction_streamed: the built library "
-                               "disagrees with the wrapper on the largest m")
+        fn.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, i32,
+                       ctypes.c_longlong, i32, ptr]
+        fn.restype = i32
+        fn = lib.adaqn_project
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, ctypes.c_longlong,
+                       i32, i32, i32, ptr]
+        fn.restype = i32
+        lib.sqn_direction_max_mem.restype = i32
+        lib.adaqn_project_max_mem.restype = i32
+        lib.adaqn_project_blocks_per_sm.restype = i32
+        lib.adaqn_project_num_outputs.argtypes = [i32]
+        lib.adaqn_project_num_outputs.restype = i32
+        if (lib.sqn_direction_max_mem() != _MAX_MEM
+                or lib.adaqn_project_max_mem() != _MAX_MEM
+                or lib.adaqn_project_blocks_per_sm() != _BLOCKS_PER_SM
+                or lib.adaqn_project_num_outputs(_MAX_MEM)
+                != 3 * _MAX_MEM + _MAX_MEM * (_MAX_MEM + 1) // 2):
+            raise RuntimeError("two_loop_kernel: the built library "
+                               "disagrees with the wrappers on the largest "
+                               "m, the grid or the number of projection "
+                               "sums")
         _lib = lib
     return _lib

@@ -2,8 +2,8 @@
 
 Counterpart of :mod:`stochqn_tpu.ops.pairs`: ``take_step``'s NaN/magnitude
 guard (``src/stochqn.c:825-835``), ``check_min_curvature``
-(``src/stochqn.c:883-900``) and the commit with its incremental Gram and
-small-math cache.  Everything stays on the device: accept/reject is a
+(``src/stochqn.c:883-900``), the commit with its incremental Gram and
+small-math cache, and adaQN's empirical-Fisher ``y``.  Everything stays on the device: accept/reject is a
 tensor, selected with ``torch.where``, never read on the host.
 """
 from __future__ import annotations
@@ -12,7 +12,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from stochqn_tpu_torch.core.state import BFGSMemory
+from stochqn_tpu_torch.core.state import BFGSMemory, FisherMemory
 from stochqn_tpu_torch.ops.two_loop import _chrono_perm, _mem_mm
 
 
@@ -175,3 +175,16 @@ def _small_cache(gram: torch.Tensor, head: torch.Tensor, count: torch.Tensor,
     out["cg"] = torch.cat([torch.cat([cg_ss, cg_sy], dim=1),
                            torch.cat([cg_ys, zero_m], dim=1)], dim=0)
     return out
+
+
+def fisher_y(fisher: FisherMemory, s: torch.Tensor) -> torch.Tensor:
+    """Empirical-Fisher y vector: ``y = F^T (F s) / count``
+    (``update_y_fisher``, ``src/stochqn.c:936-952``).  Rows at or past
+    ``count`` are masked out, so stale rows after a flush do not count."""
+    acc_t = torch.promote_types(s.dtype, torch.float32)
+    fs = _mem_mm(fisher.f, s, acc_t)                              # [k]
+    k = torch.arange(fisher.f.shape[0], device=fs.device)
+    fs = torch.where(k < fisher.count, fs, torch.zeros_like(fs))
+    y = _mem_mm(fs, fisher.f, acc_t)                              # [n]
+    denom = torch.clamp(fisher.count, min=1).to(acc_t)
+    return (y / denom).to(s.dtype)

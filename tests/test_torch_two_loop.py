@@ -1,13 +1,16 @@
-"""The torch port's collapsed cached two-loop against the JAX package.
+"""The torch port's cached two-loop against the JAX package: SQN's
+collapsed scalar-H0 branch and adaQN's diagonal-H0 branches.
 
 The pair memory is built by the JAX package's own commits and carried
 across with ``convert``, so this isolates the direction.  On the CPU the
-port's direction kernel wrapper runs its plain PyTorch version.
+port's kernel wrappers run their plain PyTorch versions.
 Tolerance: float32 with different summation orders over n = 300 and the
 2m = 8 rows (rtol 3e-5, atol 1e-5 on directions of order 1-10); the
-``count == 0`` case must return ``g`` exactly.
+``count == 0`` case must return ``g`` (``diag * g`` with a diagonal H0)
+exactly.
 """
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -22,20 +25,23 @@ from stochqn_tpu.ops.pairs import conditional_flush as jax_flush  # noqa: E402
 from stochqn_tpu.ops.two_loop import two_loop_cached as jax_two_loop  # noqa: E402
 from stochqn_tpu_torch.convert import bfgs_memory_from_numpy  # noqa: E402
 from stochqn_tpu_torch.ops.kernels import two_loop_kernel  # noqa: E402
+from stochqn_tpu_torch.core.state import BFGSMemory  # noqa: E402
+from stochqn_tpu_torch.ops import pairs, two_loop  # noqa: E402
 from stochqn_tpu_torch.ops.two_loop import (_chrono_perm,  # noqa: E402
                                             two_loop_cached)
 
 M, N = 4, 300
 
 
-def _jax_mem(n_commits, flush=False):
+def _jax_mem(n_commits, flush=False, direction_cache=True):
     rng = np.random.default_rng(21)
     mem = JaxMemory.create(M, N, jnp.float32)
     for _ in range(n_commits):
         s = rng.standard_normal(N).astype(np.float32)
         y = (s + 0.3 * rng.standard_normal(N)).astype(np.float32)
         mem, _ = jax_commit(mem.replace(s_pending=jnp.asarray(s)),
-                            jnp.asarray(y), 1e-4, 0.0, direction_cache=True)
+                            jnp.asarray(y), 1e-4, 0.0,
+                            direction_cache=direction_cache)
     if flush:
         mem = jax_flush(mem, jnp.asarray(True))
     return mem
@@ -83,9 +89,106 @@ def test_chrono_perm_matches_jax(head, count):
 
 
 @pytest.mark.parametrize("kwargs", [dict(collapsed=False),
-                                    dict(collapsed=True,
-                                         diag=torch.ones(N))])
+                                    dict(collapsed=False, h0=0.5)])
 def test_unported_branches_raise(kwargs):
+    """The scalar-H0 uncollapsed branch comes with oLBFGS; a diagonal H0
+    is ported (below)."""
     mem = _to_torch(_jax_mem(2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         two_loop_cached(torch.zeros(N), mem, **kwargs)
+
+
+def _diag(signed, seed=5):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(N) if signed
+            else rng.uniform(0.1, 2.0, N)).astype(np.float32)
+
+
+ROUTES = {
+    # port kwargs, JAX kwargs (the kernel route: JAX's Pallas kernel in
+    # interpret mode)
+    "matvec": (dict(coupling="matvec"), dict(coupling="matvec")),
+    "gram": (dict(coupling="gram"), dict(coupling="gram")),
+    "kernel": (dict(use_pallas=True),
+               dict(use_pallas=True, pallas_interpret=True)),
+}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+@pytest.mark.parametrize("signed", [False, True], ids=["positive", "signed"])
+@pytest.mark.parametrize("n_commits", [1, 3, 6])   # 6 overfills the ring
+def test_diag_branches_match_jax(n_commits, signed, route):
+    jmem = _jax_mem(n_commits, direction_cache=False)
+    g = np.random.default_rng(4).standard_normal(N).astype(np.float32)
+    d = _diag(signed)
+    port_kw, jax_kw = ROUTES[route]
+    want = np.asarray(jax_two_loop(jnp.asarray(g), jmem, diag=jnp.asarray(d),
+                                   **jax_kw))
+    launches = two_loop_kernel.PROJECT_ADAQN_LAUNCHES
+    got = two_loop_cached(torch.from_numpy(g), _to_torch(jmem),
+                          diag=torch.from_numpy(d), **port_kw)
+    assert got.dtype == torch.float32 and got.shape == (N,)
+    np.testing.assert_allclose(got.numpy(), want, rtol=3e-5, atol=1e-5)
+    assert two_loop_kernel.PROJECT_ADAQN_LAUNCHES == launches   # CPU
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_diag_empty_memory_returns_diag_times_gradient(route):
+    jmem = _jax_mem(3, flush=True, direction_cache=False)
+    g = np.random.default_rng(9).standard_normal(N).astype(np.float32)
+    d = _diag(True)
+    got = two_loop_cached(torch.from_numpy(g), _to_torch(jmem),
+                          diag=torch.from_numpy(d), **ROUTES[route][0])
+    np.testing.assert_array_equal(got.numpy(), d * g)
+
+
+def _spy_kernel(monkeypatch):
+    calls = []
+
+    def spy(*args):
+        calls.append(args)
+        return two_loop_kernel.project_adaqn(*args)
+    monkeypatch.setattr(two_loop, "project_adaqn", spy)
+    return calls
+
+
+def _port_mem(storage, commits=3):
+    rng = np.random.default_rng(6)
+    mem = BFGSMemory.create(M, N, torch.float32, storage_dtype=storage)
+    for _ in range(commits):
+        s = torch.from_numpy(rng.standard_normal(N).astype(np.float32))
+        y = s + 0.3 * torch.from_numpy(
+            rng.standard_normal(N).astype(np.float32))
+        mem, _ = pairs.commit_pair(mem.replace(s_pending=s), y, 1e-8, 0.0)
+    return mem
+
+
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_kernel_route_needs_float32_storage(monkeypatch, storage):
+    """``use_pallas=True`` takes the projection kernel only for float32
+    grad and float32 pairs, decided before any launch; bfloat16 pairs take
+    the plain matvec route (as ``test_bf16_pairs_with_pallas_falls_back``
+    in ``tests/test_pallas_kernels.py`` for the JAX package)."""
+    calls = _spy_kernel(monkeypatch)
+    mem = _port_mem(storage)
+    rng = np.random.default_rng(7)
+    g = torch.from_numpy(rng.standard_normal(N).astype(np.float32))
+    d = torch.from_numpy(rng.uniform(0.5, 1.5, N).astype(np.float32))
+    forced = two_loop_cached(g, mem, diag=d, use_pallas=True)
+    plain = two_loop_cached(g, mem, diag=d)
+    assert len(calls) == (1 if storage == torch.float32 else 0)
+    np.testing.assert_allclose(forced.numpy(), plain.numpy(), rtol=3e-5,
+                               atol=1e-5)
+    if storage == torch.bfloat16:
+        np.testing.assert_array_equal(forced.numpy(), plain.numpy())
+
+
+def test_bad_coupling_and_interleaved_diag_raise():
+    mem = _to_torch(_jax_mem(2))
+    with pytest.raises(ValueError, match="coupling"):
+        two_loop_cached(torch.zeros(N), mem, diag=torch.ones(N),
+                        coupling="dense")
+    interleaved = types.SimpleNamespace(sy=torch.zeros(2 * M, N))
+    with pytest.raises(ValueError, match="diagonal H0"):
+        two_loop_cached(torch.zeros(N), interleaved, diag=torch.ones(N))
