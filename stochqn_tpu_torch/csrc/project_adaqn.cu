@@ -55,11 +55,17 @@ constexpr int kThreads = 256;
 constexpr int kMaxMem = 32;    // largest m (pairs) the kernel takes
 constexpr int kMaxItems = 3;   // (output, column slice) items per thread
 constexpr int kBlocksPerSm = 4;  // pass-1 occupancy the grid is sized for
+constexpr size_t kSmemBytes = 48 * 1024;  // static shared memory of a launch
 constexpr int kReduceWarps = kThreads / 32;
 
-__host__ __device__ inline int num_outputs(int m) {
+__host__ __device__ constexpr int num_outputs(int m) {
   return 3 * m + m * (m + 1) / 2;
 }
+// Every m up to kMaxMem fits: the items in the threads' registers, and a
+// 128-column tile with its row of ones in shared memory.
+static_assert(num_outputs(kMaxMem) <= kMaxItems * kThreads, "items");
+static_assert(sizeof(float) * ((2 * kMaxMem + 2) * 129 + 128) <= kSmemBytes,
+              "shared memory");
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -200,64 +206,76 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Columns per staged tile: 256 while the 2m + 2 padded rows and the row of
+// ones fit the static shared-memory limit (m <= 22), else 128.
+inline int tile_cols(int m) {
+  return sizeof(float) * ((2 * m + 2) * 257 + 256) <= kSmemBytes ? 256 : 128;
+}
+
+// The pass-1 grid: one wave of kBlocksPerSm blocks per SM, each taking a run
+// of consecutive tiles.
+struct Grid {
+  int tile;
+  int tiles_per_block;
+  int blocks;
+};
+
+inline Grid grid(int m, int64_t n, int num_sms) {
+  const int tile = tile_cols(m);
+  const int64_t tiles = (n + tile - 1) / tile;
+  const int64_t wave = static_cast<int64_t>(kBlocksPerSm) * num_sms;
+  const int64_t per_block = (tiles + wave - 1) / wave;
+  return {tile, static_cast<int>(per_block),
+          static_cast<int>((tiles + per_block - 1) / per_block)};
+}
+
 template <int TILE>
 int launch(const float* s, const float* y, const float* d, const float* g,
-           float* out, float* partials, int m, int64_t n, int num_partials,
-           int tiles_per_block, cudaStream_t stream) {
+           float* out, float* partials, int m, int64_t n, Grid gr,
+           cudaStream_t stream) {
   const int K = num_outputs(m);
   const int slices = K >= kThreads ? 1 : kThreads / K;
   const size_t smem = sizeof(float) * (2 * m + 2) * (TILE + 1);
-  if (K * slices > kMaxItems * kThreads ||
-      smem + sizeof(float) * TILE > 48 * 1024 ||  // with the row of ones
-      static_cast<int64_t>(num_partials) * tiles_per_block * TILE < n) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  adaqn_partials<TILE><<<num_partials, kThreads, smem, stream>>>(
-      s, y, d, g, m, n, tiles_per_block, slices, partials);
+  adaqn_partials<TILE><<<gr.blocks, kThreads, smem, stream>>>(
+      s, y, d, g, m, n, gr.tiles_per_block, slices, partials);
   adaqn_reduce<<<(K + kReduceWarps - 1) / kReduceWarps, kThreads, 0,
-                 stream>>>(partials, num_partials, m, out);
+                 stream>>>(partials, gr.blocks, m, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+bool valid(int m, long long n, int num_sms) {
+  return m >= 1 && m <= kMaxMem && n >= 1 && num_sms >= 1;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest m (number of pairs) the kernel takes.
-int adaqn_project_max_mem(void) { return kMaxMem; }
-
-// Pass-1 blocks per SM the caller should size one wave of the grid for.
-int adaqn_project_blocks_per_sm(void) { return kBlocksPerSm; }
-
-// Number of sums pass 1 keeps per block: 3m + m(m+1)/2.
-int adaqn_project_num_outputs(int m) { return num_outputs(m); }
+// Floats of scratch adaqn_project needs for these m and n on a card with
+// num_sms SMs (one partial sum per output and pass-1 block); 0 if the
+// arguments are out of range.
+long long adaqn_project_scratch(int m, long long n, int num_sms) {
+  if (!valid(m, n, num_sms)) return 0;
+  return static_cast<long long>(num_outputs(m)) * grid(m, n, num_sms).blocks;
+}
 
 // wg = [S; Y] g, ydg = (Y o d) g, ydy = (Y o d) Y^T in one pass.
-//   s, y      [m, n] float32 row-major;  d, g [n] float32
-//   out       float32, 3m + m*m: wg (2m) | ydg (m) | ydy (m x m)
-//   partials  float32, num_outputs(m) * num_partials scratch
-//   tile      columns per staged tile, 256 or 128; (2m + 2)(tile + 1)
-//             + tile floats must fit 48 KB
-//   num_partials * tiles_per_block * tile >= n
+//   s, y     [m, n] float32 row-major, 1 <= m <= 32;  d, g [n] float32
+//   out      float32, 3m + m*m: wg (2m) | ydg (m) | ydy (m x m)
+//   scratch  float32, adaqn_project_scratch(m, n, num_sms) floats
+//   num_sms  SMs of the card the stream belongs to (sizes the grid)
 // Returns cudaGetLastError() after the launches (0 on success).
 int adaqn_project(const float* s, const float* y, const float* d,
-                  const float* g, float* out, float* partials, int m,
-                  long long n, int tile, int num_partials,
-                  int tiles_per_block, void* stream) {
-  if (m < 1 || m > kMaxMem || n < 1 || num_partials < 1 ||
-      tiles_per_block < 1) {
+                  const float* g, float* out, float* scratch, int m,
+                  long long n, int num_sms, void* stream) {
+  if (!valid(m, n, num_sms)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const Grid gr = grid(m, n, num_sms);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (tile == 256) {
-    return launch<256>(s, y, d, g, out, partials, m, n, num_partials,
-                       tiles_per_block, st);
-  }
-  if (tile == 128) {
-    return launch<128>(s, y, d, g, out, partials, m, n, num_partials,
-                       tiles_per_block, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return gr.tile == 256
+             ? launch<256>(s, y, d, g, out, scratch, m, n, gr, st)
+             : launch<128>(s, y, d, g, out, scratch, m, n, gr, st);
 }
 
 }  // extern "C"

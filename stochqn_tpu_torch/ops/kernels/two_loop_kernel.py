@@ -52,11 +52,9 @@ _COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                   "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _STORAGE = (torch.float32, torch.bfloat16)
-_MAX_MEM = 32                 # both kernels' largest m (checked at load)
+_MAX_MEM = 32                 # both kernels' largest m
 _PARTIAL_COLS = 1024          # columns per direction pass-1 block, at least
 _MAX_PARTIALS = 1024          # direction pass-1 blocks, at most
-_BLOCKS_PER_SM = 4            # projection pass-1 blocks per SM (one wave)
-_SMEM_BYTES = 48 * 1024       # static shared-memory limit of a launch
 
 _lib = None
 # (seconds, nvcc output) of the build this process made; None if the
@@ -178,17 +176,9 @@ def _check_adaqn(s_mem, y_mem, diag, grad):
         raise ValueError("project_adaqn: tensors must be contiguous")
 
 
-def _adaqn_tile(m: int) -> int:
-    """Columns per staged tile: 256 while the 2m + 2 padded rows and the
-    row of ones fit the static shared-memory limit (m <= 22), else 128."""
-    return 256 if ((2 * m + 2) * 257 + 256) * 4 <= _SMEM_BYTES else 128
-
-
 @functools.lru_cache(maxsize=None)
-def _one_wave(device_index: int) -> int:
-    """Projection pass-1 blocks that fit the card at once."""
-    return _BLOCKS_PER_SM * torch.cuda.get_device_properties(
-        device_index).multi_processor_count
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def project_adaqn(s_mem: torch.Tensor, y_mem: torch.Tensor,
@@ -206,22 +196,18 @@ def project_adaqn(s_mem: torch.Tensor, y_mem: torch.Tensor,
     if not _on_cuda("project_adaqn", s_mem):
         return project_adaqn_ref(s_mem, y_mem, diag, grad)
     m, n = s_mem.shape
-    tile = _adaqn_tile(m)
-    tiles = -(-n // tile)
-    tiles_per_block = -(-tiles // _one_wave(s_mem.device.index))
-    num_partials = -(-tiles // tiles_per_block)
     lib = _library()
-    num_outputs = 3 * m + m * (m + 1) // 2
+    sms = _sm_count(s_mem.device.index)
     with torch.cuda.device(s_mem.device):
         out = torch.empty(3 * m + m * m, dtype=torch.float32,
                           device=s_mem.device)
-        partials = torch.empty(num_outputs * num_partials,
-                               dtype=torch.float32, device=s_mem.device)
+        scratch = torch.empty(lib.adaqn_project_scratch(m, n, sms),
+                              dtype=torch.float32, device=s_mem.device)
         stream = torch.cuda.current_stream(s_mem.device).cuda_stream
         err = lib.adaqn_project(s_mem.data_ptr(), y_mem.data_ptr(),
                                 diag.data_ptr(), grad.data_ptr(),
-                                out.data_ptr(), partials.data_ptr(), m, n,
-                                tile, num_partials, tiles_per_block, stream)
+                                out.data_ptr(), scratch.data_ptr(), m, n, sms,
+                                stream)
     if err != 0:
         raise RuntimeError(f"project_adaqn: kernel launch failed with CUDA "
                            f"error {err}")
@@ -298,21 +284,14 @@ def _library():
         fn.restype = i32
         fn = lib.adaqn_project
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, ctypes.c_longlong,
-                       i32, i32, i32, ptr]
+                       i32, ptr]
         fn.restype = i32
+        fn = lib.adaqn_project_scratch
+        fn.argtypes = [i32, ctypes.c_longlong, i32]
+        fn.restype = ctypes.c_longlong
         lib.sqn_direction_max_mem.restype = i32
-        lib.adaqn_project_max_mem.restype = i32
-        lib.adaqn_project_blocks_per_sm.restype = i32
-        lib.adaqn_project_num_outputs.argtypes = [i32]
-        lib.adaqn_project_num_outputs.restype = i32
-        if (lib.sqn_direction_max_mem() != _MAX_MEM
-                or lib.adaqn_project_max_mem() != _MAX_MEM
-                or lib.adaqn_project_blocks_per_sm() != _BLOCKS_PER_SM
-                or lib.adaqn_project_num_outputs(_MAX_MEM)
-                != 3 * _MAX_MEM + _MAX_MEM * (_MAX_MEM + 1) // 2):
+        if lib.sqn_direction_max_mem() != _MAX_MEM:
             raise RuntimeError("two_loop_kernel: the built library "
-                               "disagrees with the wrappers on the largest "
-                               "m, the grid or the number of projection "
-                               "sums")
+                               "disagrees with the wrappers on the largest m")
         _lib = lib
     return _lib

@@ -15,7 +15,9 @@ holds the two kernels' plain versions together.
 
 Tolerance: 16 optimizer steps in float32, each side summing in its own
 order; quasi-Newton steps amplify those ulp-level differences somewhat,
-and the cached inverses more (rtol 1e-4, atol 2e-5, as for SQN).
+and the cached inverses more (rtol 1e-4, atol 2e-5, as for SQN).  The
+float64 cases run the same program in float64 and hold the two to rtol
+1e-9.
 """
 import dataclasses
 
@@ -31,6 +33,7 @@ from stochqn_tpu.fused import FusedTrainer as JaxTrainer  # noqa: E402
 from stochqn_tpu.models import losses as jl  # noqa: E402
 from stochqn_tpu_torch import (AdaQNConfig, FusedTrainer, Info,  # noqa: E402
                                adaqn_state_from_numpy, adaqn_state_to_numpy)
+from stochqn_tpu_torch.core.state import AdaQNState  # noqa: E402
 from stochqn_tpu_torch.models import losses as tl  # noqa: E402
 from stochqn_tpu_torch.ops.kernels import two_loop_kernel as tlk  # noqa: E402
 
@@ -214,6 +217,43 @@ def test_ring_mode_fisher_matches_jax():
     tst, tinfos = _run_torch(ttr, tst, X, Y, [ETA])
     np.testing.assert_array_equal(tinfos.numpy(), np.asarray(jinfos))
     _assert_state_close(tst, jst)
+
+
+@pytest.mark.parametrize("cfg_kw", [
+    {"rmsprop_weight": 0.9},
+    {},
+    {"use_grad_diff": True},
+    {"h0_exact_reference": False},
+    {"coupling": "gram"},
+], ids=["rmsprop", "fisher", "grad_diff", "paper_h0", "gram"])
+def test_float64_trajectory_matches_jax(cfg_kw):
+    """The same run in float64, the Fisher ring in ring mode as at the
+    BibTeX shape, four epochs: the two packages take the same steps to
+    float64 rounding (rtol 1e-9).  A float32 trajectory amplifies its
+    roundings too fast for a tolerance this tight, so this is the check
+    that the two implement the same algorithm."""
+    X, Y, x0 = (a.astype(np.float64) for a in _data())
+    etas = [ETA] * 4
+    jtr, ttr = _trainers(cfg_kw)
+    jst = jtr.init(jnp.asarray(x0))
+    jst = jst.replace(fisher=jst.fisher.replace(shift=False))
+    jst, jinfos = jtr.jit_epochs()(jst, (jnp.asarray(X), jnp.asarray(Y)),
+                                   jnp.asarray(etas), nepochs=len(etas))
+    tst = AdaQNState.create(torch.from_numpy(x0), M, FS)
+    tst = tst.replace(fisher=tst.fisher.replace(shift=False))
+    tst, tinfos = ttr.epochs(tst, (torch.from_numpy(X), torch.from_numpy(Y)),
+                             torch.tensor(etas, dtype=torch.float64),
+                             nepochs=len(etas))
+    np.testing.assert_array_equal(tinfos.numpy(), np.asarray(jinfos))
+    assert (tinfos.flatten()[2 * L - 1::L] == 200).any()
+    got, want = adaqn_state_to_numpy(tst), _jax_numpy(jst)
+    assert got["x"].dtype == want["x"].dtype == np.float64
+    for name in ("x", "x_avg_prev", "grad_sum_sq", "f_prev"):
+        np.testing.assert_allclose(got[name], want[name], rtol=1e-9,
+                                   atol=1e-12, err_msg=name)
+    for name in ("s", "y", "count", "head"):
+        np.testing.assert_allclose(got["mem"][name], want["mem"][name],
+                                   rtol=1e-9, atol=1e-12, err_msg=name)
 
 
 def test_numpy_round_trip_is_exact():

@@ -114,14 +114,6 @@ def test_wrapper_rejects_bad_arguments(case, exc):
         tlk.project_adaqn(*_bad_args(case))
 
 
-@pytest.mark.parametrize("m,expect", [(1, 256), (10, 256), (22, 256),
-                                      (23, 128), (32, 128)])
-def test_tile_fits_static_shared_memory(m, expect):
-    tile = tlk._adaqn_tile(m)
-    assert tile == expect
-    assert ((2 * m + 2) * (tile + 1) + tile) * 4 <= 48 * 1024
-
-
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
