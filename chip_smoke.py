@@ -9,18 +9,22 @@ Phases (each failure raises and exits non-zero; nothing is caught):
 
 1. The card (``nvidia-smi`` name and power limit), torch / CUDA versions and
    the float32 matmul settings (TF32 off, "highest").  No CUDA: exit 1.
-2. Build both kernels (direction, adaQN projection) from
+2. Build the four kernels (both directions, both projections) from
    ``stochqn_tpu_torch/csrc``, one nvcc per source, started together.
-3. The kernel against its plain PyTorch version on the card, on a real
+3. The streamed direction kernel against its plain PyTorch version on the
+   card, on a real
    commit cache (12 commits into a ring of m = 10), at n = 900, 1,500 and
    292,083, for float32 and bfloat16 pair storage; then both timed at the
    flagship shape with CUDA events.
 4. The main path: ``FusedTrainer("SQN")`` at BibTeX shape (1,836 features,
    159 classes, batches of 50, 120 batches, m = 10, L = 20) on bench.py's
    data, 2 epochs through ``epochs``.  Checks: no host sync inside,
-   finite ``x``, valid info codes, lower loss, one kernel launch per step,
-   and the JAX package's result (below).  Then three more epochs, each timed, and the main path's
-   layers timed one by one.
+   finite ``x``, valid info codes, lower loss, one launch per step of the
+   direction kernel the gate chose (the one-read kernel where the card's
+   shared memory parks the pairs, else the streamed one), and the JAX
+   package's result (below).  Then steady epochs of the gate's route and
+   of the streamed route forced, timed in turns, and the main path's layers
+   timed one by one.
 5. Device against CPU on a small problem (the CPU runs the plain version).
 6. The adaQN projection kernel against its plain version on the card, on
    full committed rings (m = 4 and 10) at n = 700, 1,000, 1,500 and
@@ -37,6 +41,30 @@ Phases (each failure raises and exits non-zero; nothing is caught):
    ``F64_RTOL``).  Then both routes timed in turns, and the adaQN layers
    timed one by one.
 8. adaQN device against CPU on a small problem.
+9. The ``project`` kernel against its plain version on the card at
+   n = 700, 1,000, 1,500, 2,048 and 292,083, m = 5 and 10; at n = 292,083
+   both against a float64 plain version; then timed at the flagship shape
+   beside the plain version and the library pair ``W @ g``, ``W @ W.T``.
+10. The one-read ``direction`` kernel against its plain version and
+    against the streamed kernel on a real commit cache at n = 900, 1,500,
+    292,083 (where the card's cap admits it) and the largest n within the
+    cap; the first n over the cap must raise; then both direction kernels
+    timed in turns, and by n from 900 to 292,083.
+11. The free-mode SQN path at full width: ``SQN_free(mem_size=10,
+    bfgs_upd_freq=20, use_float=True)`` driven by a request loop for one
+    epoch of the same data, gradients and Hessian-vector products from
+    ``losses`` on the card.  Checks: the request order, every
+    ``iteration_info``, one launch per step of the direction kernel the
+    gate chose and none of a plain version, after every commit the
+    uncached oracle ``two_loop(use_pallas=True)`` (the ``project``
+    kernel) against the cached direction, ``x`` against
+    ``FusedTrainer("SQN")`` on the same batches, and the JAX package's
+    loss (below).  Then three rounds with ``mem_size=20``, whose pairs no
+    H100 parks: one launch per step of the streamed kernel.
+12. The free-mode adaQN path for three boundaries: ``adaQN_free`` in
+    float64, the function values it asks for against the JAX package's
+    float64 run; and in float32 with ``use_pallas=True`` in its config, one
+    projection launch per step.
 
 The last two lines are the kernels' JSON record and the contract line
 ``{"ok": true, "device": {...}}``; the card's ``nvidia-smi`` line is
@@ -44,6 +72,7 @@ printed before them.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -56,7 +85,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from stochqn_tpu_torch import AdaQNConfig, FusedTrainer, SQNConfig  # noqa: E402
+from stochqn_tpu_torch import (AdaQNConfig, FusedTrainer,  # noqa: E402
+                               SQN_free, SQNConfig, adaQN_free)
 from stochqn_tpu_torch.core.state import AdaQNState, BFGSMemory  # noqa: E402
 from stochqn_tpu_torch.fused import (_adaqn_boundary, _flat,  # noqa: E402
                                      _sqn_boundary)
@@ -64,7 +94,9 @@ from stochqn_tpu_torch.models import losses  # noqa: E402
 from stochqn_tpu_torch.ops.accumulators import diag_rescal  # noqa: E402
 from stochqn_tpu_torch.ops.kernels import two_loop_kernel as tlk  # noqa: E402
 from stochqn_tpu_torch.ops.pairs import commit_pair, fisher_y  # noqa: E402
-from stochqn_tpu_torch.ops.two_loop import two_loop_cached  # noqa: E402
+from stochqn_tpu_torch.ops import two_loop as two_loop_mod  # noqa: E402
+from stochqn_tpu_torch.ops.two_loop import (two_loop,  # noqa: E402
+                                            two_loop_cached)
 
 # BibTeX shape and the bench.py workload (bench.py:70-78, :131-137).
 N_FEATURES, N_CLASSES, BATCH_SIZE, NUM_BATCHES = 1836, 159, 50, 120
@@ -80,6 +112,30 @@ N_FLAGSHIP = (N_FEATURES + 1) * N_CLASSES          # 292,083
 JAX_LOSS_X0 = 709_638.8125
 JAX_LOSS_2_EPOCHS = 451_613.0
 LOSS_RTOL = 1e-3
+# The JAX package's protocol tier on the CPU, on the same data:
+# SQN_free(mem_size=10, bfgs_upd_freq=20, use_float=True) in a request loop
+# at eta = 1e-2, minibatch b for the b-th calc_grad, the round's 20
+# minibatches merged (example axis major, as the fused engine merges them)
+# for calc_hess_vec, gradients and closed-form Hessian-vector products from
+# stochqn_tpu.models.losses under jit.  One epoch: 121 calc_grad and 5
+# calc_hess_vec requests, every iteration_info no_problems_encountered,
+# 5 live pairs, full-data loss 515,562.25.  After 3 rounds (60 steps): 2
+# calc_hess_vec requests, 2 live pairs, loss 616,679.375; with 2 pairs the
+# direction does not depend on mem_size, so the mem_size = 20 run below is
+# held to the same number.
+JAX_FREE_SQN_LOSS_1_EPOCH = 515_562.25
+JAX_FREE_SQN_LOSS_3_ROUNDS = 616_679.375
+# adaQN_free(**ADAQN_KW) in float64 (jax_enable_x64) in the same loop at
+# eta = 0.1, the function value on the round's merged minibatches: it asks
+# for f at the points where the fused engine's guard evaluates it, and the
+# first three values are JAX_F64_GUARD_F[:3] below to all printed digits;
+# the third boundary is a func_increased rejection.
+FREE_ADAQN_BOUNDARIES = 3
+
+# The card's peaks for the kernels' bounds: NVIDIA's data sheet for the
+# H100 SXM, device memory rate and float32 rate outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
 
 # Kernel vs plain version: the tolerance of tests/test_pallas_kernels.py
 # for the same kernel.  Both read the same stored pairs and accumulate in
@@ -90,6 +146,26 @@ KERNEL_RTOL, KERNEL_ATOL = 3e-5, 1e-4
 PARITY_RTOL, PARITY_ATOL = 1e-4, 2e-5
 
 VALID_INFO = {200, 201, 202, 203}
+
+
+def reset_launches():
+    """Set every kernel's launch count to 0 (before a path is driven)."""
+    tlk.LAUNCHES = tlk.DIRECTION_LAUNCHES = 0
+    tlk.PROJECT_LAUNCHES = tlk.PROJECT_ADAQN_LAUNCHES = 0
+
+
+def read_launches():
+    return {"direction_streamed": tlk.LAUNCHES,
+            "direction": tlk.DIRECTION_LAUNCHES,
+            "project": tlk.PROJECT_LAUNCHES,
+            "project_adaqn": tlk.PROJECT_ADAQN_LAUNCHES}
+
+
+def gate_choice(m, n, dev):
+    """The direction kernel ``two_loop_cached(collapsed=True)`` takes for
+    float32 pairs of this shape on this card, and the other one."""
+    names = ("direction", "direction_streamed")
+    return names if tlk.direction_fits(m, n, dev) else names[::-1]
 
 # adaQN on the same data, as the JAX package runs it on the CPU:
 # FusedTrainer("adaQN", AdaQNConfig.create(mem_size=10, fisher_size=100,
@@ -231,6 +307,63 @@ def host_ms(fn, iters):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def time_kernel(what, kern, plain, library=None):
+    """Device and host times of a kernel wrapper, its plain version and,
+    where there is one, the library call(s) computing the same function:
+    back to back (inputs warm in L2), in turns (plain, kernel, kernel,
+    plain), then with L2 flushed before each call, then host wall."""
+    dev = torch.device("cuda")
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    p1, k1, k2, p2 = (device_ms(f, 50) for f in (plain, kern, kern, plain))
+    t = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+             cold_ms=device_ms(kern, 30, flush),
+             cold_plain_ms=device_ms(plain, 30, flush),
+             host_ms=host_ms(kern, 200), plain_host_ms=host_ms(plain, 200),
+             library_ms=None)
+    print(f"  time {what}, device: kernel {k1:.4f}/{k2:.4f} ms, plain "
+          f"{p1:.4f}/{p2:.4f} ms (back to back, inputs warm in L2); L2 "
+          f"flushed: kernel {t['cold_ms']:.4f} ms, plain "
+          f"{t['cold_plain_ms']:.4f} ms", flush=True)
+    print(f"  time {what}, host wall per call: kernel {t['host_ms']:.4f} ms, "
+          f"plain {t['plain_host_ms']:.4f} ms", flush=True)
+    if library is not None:
+        t["library_ms"] = device_ms(library, 50)
+        t["cold_library_ms"] = device_ms(library, 30, flush)
+        print(f"  time {what}, library call(s): {t['library_ms']:.4f} ms "
+              f"warm, {t['cold_library_ms']:.4f} ms with L2 flushed",
+              flush=True)
+    return t
+
+
+def bound(nbytes, flops):
+    """``bound_ms`` and ``bound_by``: the least time the card could take,
+    the larger of the bytes (each input read once, each output written
+    once) over the memory rate and the float32 operations over the
+    float32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def direction_bound(m, n, storage_bytes=4):
+    """d = gamma g + W^T (C (W g)): W, g, C and gamma read, d written."""
+    nbytes = 2 * m * n * storage_bytes + 4 * (n + 4 * m * m + 1) + 4 * n
+    return bound(nbytes, 8 * m * n + 2 * n + 8 * m * m)
+
+
+def project_bound(m, n):
+    """W g and W W^T: S, Y and g read, 2m + 4m^2 sums written."""
+    nbytes = 4 * ((2 * m + 1) * n + 2 * m + 4 * m * m)
+    return bound(nbytes, 2 * n * (2 * m + 4 * m * m))
+
+
+def project_adaqn_bound(m, n):
+    """W g, (Y o D) g, (Y o D) Y^T: S, Y, d and g read, 3m + m^2 sums
+    written; the products, and Y o D formed once."""
+    nbytes = 4 * ((2 * m + 2) * n + 3 * m + m * m)
+    return bound(nbytes, n * (4 * m + m + 2 * m + 2 * m * m))
+
+
 # ---------------------------------------------------------------------------
 def committed_memory(n, storage, dev, gen, commits=12, m=MEM_SIZE):
     """A ring of m pairs filled by the port's own commits (more than m, so
@@ -273,31 +406,11 @@ def kernel_phase(dev):
                   f"max_rel_err={max_rel:.3e} within rtol={KERNEL_RTOL} "
                   f"atol={KERNEL_ATOL}")
             if n == N_FLAGSHIP:
-                flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-
-                def kern():
-                    return tlk.direction_streamed(*args)
-
-                def plain():
-                    return tlk.direction_streamed_ref(*args)
-                # in turns: plain, kernel, kernel, plain
-                p1, k1, k2, p2 = (device_ms(f, 50)
-                                  for f in (plain, kern, kern, plain))
                 name = str(storage)[6:]
-                timing[name] = dict(
-                    ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                    cold_ms=device_ms(kern, 30, flush),
-                    cold_plain_ms=device_ms(plain, 30, flush),
-                    host_ms=host_ms(kern, 200),
-                    plain_host_ms=host_ms(plain, 200))
-                t = timing[name]
-                print(f"  time n={n} {name}, device: kernel {k1:.4f}/{k2:.4f}"
-                      f" ms, plain {p1:.4f}/{p2:.4f} ms (back to back, W warm"
-                      f" in L2); L2 flushed: kernel {t['cold_ms']:.4f} ms, "
-                      f"plain {t['cold_plain_ms']:.4f} ms", flush=True)
-                print(f"  time n={n} {name}, host wall per call: kernel "
-                      f"{t['host_ms']:.4f} ms, plain {t['plain_host_ms']:.4f}"
-                      " ms", flush=True)
+                timing[name] = time_kernel(
+                    f"n={n} {name}",
+                    lambda: tlk.direction_streamed(*args),
+                    lambda: tlk.direction_streamed_ref(*args))
     return worst, timing
 
 
@@ -336,26 +449,31 @@ def main_path_phase(dev):
     data = (X, Y)
     steps = 2 * NUM_BATCHES
 
+    chosen, other = gate_choice(MEM_SIZE, N_FLAGSHIP, dev)
+    print(f"  the gate takes {chosen} for m={MEM_SIZE}, n={N_FLAGSHIP} on "
+          f"this card (direction's cap: n <= "
+          f"{tlk.direction_max_n(MEM_SIZE, dev)})", flush=True)
     torch.cuda.synchronize()
-    tlk.LAUNCHES = tlk.PROJECT_ADAQN_LAUNCHES = 0
+    reset_launches()
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")     # a host sync inside raises
     state, infos = trainer.epochs(state, data, STEP, nepochs=2, aligned=True)
     torch.cuda.set_sync_debug_mode(0)
+    counts = read_launches()
     check(True, "no host sync inside epochs (sync debug mode 'error')")
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = tlk.LAUNCHES
+    launches = counts.pop(chosen)
     print(f"  2 epochs ({steps} steps) in {first_s:.3f} s, first call "
           "included", flush=True)
-    check(tlk.PROJECT_ADAQN_LAUNCHES == 0,
-          "the adaQN projection kernel is not on the SQN path")
+    check(not any(counts.values()),
+          f"no other kernel is on this SQN path: {counts}")
 
     infos_l = infos.cpu().flatten().tolist()
     loss2 = float(full_loss(state.x))
     count = int(state.mem.count)
     check(launches == steps,
-          f"direction kernel launched {launches} times for {steps} steps")
+          f"{chosen} kernel launched {launches} times for {steps} steps")
     check(bool(torch.isfinite(state.x).all()), "x is finite")
     check(len(infos_l) == steps and set(infos_l) <= VALID_INFO,
           f"{len(infos_l)} info codes, all valid: {sorted(set(infos_l))}")
@@ -367,17 +485,34 @@ def main_path_phase(dev):
     check(set(infos_l) == {200}, f"all {steps} info codes are 200")
     check(count == MEM_SIZE, f"ring count == {MEM_SIZE}")
 
-    epoch_ips = []
-    for _ in range(3):
+    # Steady epochs of the gate's route and of the streamed kernel forced
+    # (the gate's cap check answered "no"), in turns, so that both see the
+    # same card and host.  One state: the routes compute the same function.
+    rates = {chosen: [], other: []}
+    gate_fits = two_loop_mod.direction_fits
+    order = (chosen, other, other, chosen, chosen, other)
+    for route in (order if chosen == "direction" else (chosen,) * 3):
+        two_loop_mod.direction_fits = (
+            gate_fits if route == "direction" else lambda m, n, d: False)
+        reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, _ = trainer.epochs(state, data, STEP, nepochs=1, aligned=True)
         torch.cuda.synchronize()
-        epoch_ips.append(NUM_BATCHES / (time.perf_counter() - t0))
-    ips = statistics.median(epoch_ips)
-    print(f"  steady epochs: {', '.join(f'{v:.1f}' for v in epoch_ips)} "
-          f"iters/s; median {ips:.1f} iters/s", flush=True)
-    check(bool(torch.isfinite(state.x).all()), "x finite after 5 epochs")
+        rates[route].append(NUM_BATCHES / (time.perf_counter() - t0))
+        two_loop_mod.direction_fits = gate_fits
+        check(read_launches()[route] == NUM_BATCHES,
+              f"steady epoch on {route}: one launch per step")
+    for route, vals in rates.items():
+        if vals:
+            print(f"  steady epochs on {route} (in turns): "
+                  f"{', '.join(f'{v:.1f}' for v in vals)} iters/s; median "
+                  f"{statistics.median(vals):.1f} iters/s", flush=True)
+    ips = statistics.median(rates[chosen])
+    streamed_ips = (statistics.median(rates["direction_streamed"])
+                    if rates["direction_streamed"] else None)
+    check(bool(torch.isfinite(state.x).all()), "x finite after the steady "
+          "epochs")
 
     # The layers of one step and one boundary, each timed alone.
     batch = (X[0], Y[0])
@@ -396,7 +531,7 @@ def main_path_phase(dev):
         print(f"  layer {name}: device {device_ms(fn, iters):.4f} ms, host "
               f"wall {host_ms(fn, iters):.4f} ms", flush=True)
     print(f"  step at the median rate: {1e3 / ips:.4f} ms", flush=True)
-    return launches, ips
+    return {chosen: launches}, ips, streamed_ips
 
 
 # ---------------------------------------------------------------------------
@@ -413,13 +548,13 @@ def parity_phase(dev):
     for where in (torch.device("cpu"), dev):
         data = (torch.from_numpy(X).to(where), torch.from_numpy(Y).to(where))
         st = trainer.init(torch.from_numpy(x0).to(where))
-        before = tlk.LAUNCHES
+        reset_launches()
         st, infos = trainer.epochs(st, data, 0.05, nepochs=2, aligned=True)
         out.append((st.x.cpu().numpy(), infos.cpu().numpy(),
-                    tlk.LAUNCHES - before))
+                    tlk.LAUNCHES + tlk.DIRECTION_LAUNCHES))
     (x_cpu, i_cpu, n_cpu), (x_dev, i_dev, n_dev) = out
     check(n_cpu == 0 and n_dev == 2 * nb,
-          f"kernel launches: CPU {n_cpu}, card {n_dev}")
+          f"direction kernel launches: CPU {n_cpu}, card {n_dev}")
     check(np.array_equal(i_cpu, i_dev), "same info codes")
     err = float(np.max(np.abs(x_cpu - x_dev)))
     check(np.allclose(x_dev, x_cpu, rtol=PARITY_RTOL, atol=PARITY_ATOL),
@@ -488,26 +623,9 @@ def adaqn_kernel_phase(dev):
 
 
 def time_projection(dev, args):
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-
-    def kern():
-        return tlk.project_adaqn(*args)
-
-    def plain():
-        return tlk.project_adaqn_ref(*args)
-    p1, k1, k2, p2 = (device_ms(f, 50) for f in (plain, kern, kern, plain))
-    t = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-             cold_ms=device_ms(kern, 30, flush),
-             cold_plain_ms=device_ms(plain, 30, flush),
-             host_ms=host_ms(kern, 200), plain_host_ms=host_ms(plain, 200))
-    print(f"  time n={N_FLAGSHIP} m={MEM_SIZE}, device: kernel "
-          f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms (back to "
-          f"back, warm in L2); L2 flushed: kernel {t['cold_ms']:.4f} ms, "
-          f"plain {t['cold_plain_ms']:.4f} ms", flush=True)
-    print(f"  time n={N_FLAGSHIP} m={MEM_SIZE}, host wall per call: kernel "
-          f"{t['host_ms']:.4f} ms, plain {t['plain_host_ms']:.4f} ms",
-          flush=True)
-    return t
+    return time_kernel(f"n={N_FLAGSHIP} m={MEM_SIZE}",
+                       lambda: tlk.project_adaqn(*args),
+                       lambda: tlk.project_adaqn_ref(*args))
 
 
 def obj_fn(x, batch):
@@ -533,8 +651,8 @@ def adaqn_two_epochs(name, x0, data, use_pallas):
     """A trainer of the smoke's adaQN config, and 2 epochs of it from
     ``x0`` through ``epochs(aligned=True)`` under sync debug mode
     'error'.  Returns the trainer, the state, the info codes (all, and at
-    the boundaries), the guard's f at each boundary and the two kernels'
-    launch counts."""
+    the boundaries), the guard's f at each boundary and the launch
+    counts (the projection kernel's, all the others')."""
     fvals = []
 
     def recording_obj_fn(x, batch):
@@ -548,13 +666,14 @@ def adaqn_two_epochs(name, x0, data, use_pallas):
     state = (trainer.init(x0) if x0.dtype == torch.float32 else
              AdaQNState.create(x0, MEM_SIZE, ADAQN_KW["fisher_size"]))
     torch.cuda.synchronize()
-    tlk.LAUNCHES = tlk.PROJECT_ADAQN_LAUNCHES = 0
+    reset_launches()
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")     # a host sync inside raises
     state, infos = trainer.epochs(state, data, ADAQN_STEP, nepochs=2,
                                   aligned=True)
     torch.cuda.set_sync_debug_mode(0)
-    launches = (tlk.PROJECT_ADAQN_LAUNCHES, tlk.LAUNCHES)
+    counts = read_launches()
+    launches = (counts.pop("project_adaqn"), sum(counts.values()))
     check(True, f"{name}: no host sync inside epochs (sync debug mode "
           "'error')")
     torch.cuda.synchronize()
@@ -593,7 +712,7 @@ def adaqn_main_path_phase(dev):
         want_launches = steps if use_pallas else 0
         check(launches == want_launches and other == 0,
               f"{route}: projection kernel launched {launches} times for "
-              f"{steps} steps, direction kernel {other} times")
+              f"{steps} steps, the other kernels {other} times")
         check(bool(torch.isfinite(state.x).all()), f"{route}: x is finite")
         hist = {c: infos_l.count(c) for c in sorted(set(infos_l))}
         check(hist == JAX_ADAQN_INFOS and binfos == JAX_ADAQN_BOUNDARY_INFOS,
@@ -752,6 +871,469 @@ def adaqn_parity_phase(dev):
           f"atol={PARITY_ATOL}")
 
 
+# ---------------------------------------------------------------------------
+def project_kernel_phase(dev):
+    phase("9. project kernel vs plain version on the card")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    worst = worst_share = 0.0
+    timing = None
+    for n in (700, 1000, 1500, 2048, N_FLAGSHIP):
+        for m in (5, MEM_SIZE):
+            mem = committed_memory(n, torch.float32, dev, gen,
+                                   commits=m + 2, m=m)
+            g = torch.randn(n, device=dev, generator=gen)
+            args = (mem.s, mem.y, g)
+            got = tlk.project(*args)
+            want = tlk.project_ref(*args)
+            torch.cuda.synchronize()
+            what = f"n={n} m={m}"
+            max_abs = max(float((a - b).abs().max())
+                          for a, b in zip(got, want))
+            worst = max(worst, max_abs)
+            check(bool(torch.equal(got[1], got[1].T)),
+                  f"{what}: gram symmetric")
+            if n != N_FLAGSHIP:
+                close = all(torch.allclose(a, b, rtol=ADAQN_RTOL,
+                                           atol=ADAQN_ATOL)
+                            for a, b in zip(got, want))
+                check(close, f"{what}: kernel vs plain max_abs_err="
+                      f"{max_abs:.3e} within rtol={ADAQN_RTOL} "
+                      f"atol={ADAQN_ATOL}")
+                continue
+            w = torch.cat([mem.s, mem.y]).double()
+            g64 = g.double()
+            vals = (w @ g64, w @ w.T)
+            mags = (w.abs() @ g64.abs(), w.abs() @ w.abs().T)
+            for who, res in (("kernel", got), ("plain", want)):
+                ratio = max(float(((r.double() - v).abs()
+                                   / (ADAQN_BOUND_REL * mag)).max())
+                            for r, v, mag in zip(res, vals, mags))
+                if who == "kernel":
+                    worst_share = max(worst_share, ratio)
+                check(ratio <= 1.0,
+                      f"{what}: {who} vs float64 within {ADAQN_BOUND_REL} x "
+                      f"sum|terms| (worst entry at {ratio:.3f} of it); "
+                      f"kernel vs plain max_abs_err={max_abs:.3e}")
+            if m == MEM_SIZE:
+                w32 = torch.cat([mem.s, mem.y])
+
+                def library():
+                    return w32 @ g, w32 @ w32.T
+                timing = time_kernel(f"n={n} m={m}",
+                                     lambda: tlk.project(*args),
+                                     lambda: tlk.project_ref(*args), library)
+    return worst, worst_share, timing
+
+
+def direction_kernel_phase(dev):
+    phase("10. one-read direction kernel vs plain version and vs the "
+          "streamed kernel on the card")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    max_n = tlk.direction_max_n(MEM_SIZE, dev)
+    print(f"  this card parks n <= {max_n} at m={MEM_SIZE} "
+          f"({tlk.direction_max_n(20, dev)} at m=20)", flush=True)
+    check(max_n > 0, "the card can launch the one-read kernel")
+    worst = 0.0
+    timing = None
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    for n in sorted({900, 1500, N_FLAGSHIP, max_n}):
+        if n > max_n:
+            print(f"  n={n} is over this card's cap: left to the streamed "
+                  "kernel", flush=True)
+            continue
+        mem = committed_memory(n, torch.float32, dev, gen)
+        g = torch.randn(n, device=dev, generator=gen)
+        args = (mem.s, mem.y, g, mem.c0 + mem.gamma * mem.cg, mem.gamma)
+        got = tlk.direction(*args)
+        again = tlk.direction(*args)
+        want = tlk.direction_ref(*args)
+        streamed = tlk.direction_streamed(*args)
+        torch.cuda.synchronize()
+        max_abs = float((got - want).abs().max())
+        worst = max(worst, max_abs)
+        check(bool(torch.equal(got, again)), f"n={n}: the same bits twice")
+        check(bool(torch.allclose(got, want, rtol=KERNEL_RTOL,
+                                  atol=KERNEL_ATOL)),
+              f"n={n}: kernel vs plain max_abs_err={max_abs:.3e} within "
+              f"rtol={KERNEL_RTOL} atol={KERNEL_ATOL}")
+        check(bool(torch.allclose(got, streamed, rtol=KERNEL_RTOL,
+                                  atol=KERNEL_ATOL)),
+              f"n={n}: vs the streamed kernel max_abs_err="
+              f"{float((got - streamed).abs().max()):.3e}")
+        if n == N_FLAGSHIP:
+            timing = time_kernel(f"n={n} m={MEM_SIZE}",
+                                 lambda: tlk.direction(*args),
+                                 lambda: tlk.direction_ref(*args))
+            # both direction kernels in turns, warm and with L2 flushed
+            turns = {"direction": [], "direction_streamed": []}
+            cold = {"direction": [], "direction_streamed": []}
+            for name in ("direction_streamed", "direction", "direction",
+                         "direction_streamed"):
+                fn = getattr(tlk, name)
+                turns[name].append(device_ms(lambda: fn(*args), 50))
+                cold[name].append(device_ms(lambda: fn(*args), 30, flush))
+            for name in turns:
+                print(f"  in turns, {name}: warm "
+                      f"{'/'.join(f'{v:.4f}' for v in turns[name])} ms, L2 "
+                      f"flushed {'/'.join(f'{v:.4f}' for v in cold[name])} "
+                      "ms", flush=True)
+            timing["streamed_ms"] = statistics.mean(
+                turns["direction_streamed"])
+            timing["streamed_cold_ms"] = statistics.mean(
+                cold["direction_streamed"])
+    # Both kernels by n: what grows with the bytes, and what is there at
+    # any size (the launches, the grid barrier, the chain of latencies).
+    sweep = {}
+    for n in (900, 29_208, 146_041, N_FLAGSHIP):
+        if n > max_n:
+            continue
+        args = (torch.randn(MEM_SIZE, n, device=dev, generator=gen),
+                torch.randn(MEM_SIZE, n, device=dev, generator=gen),
+                torch.randn(n, device=dev, generator=gen),
+                torch.randn(2 * MEM_SIZE, 2 * MEM_SIZE, device=dev,
+                            generator=gen) / n,
+                torch.ones((), device=dev))
+        sweep[n] = {name: (device_ms(lambda: fn(*args), 50),
+                           device_ms(lambda: fn(*args), 30, flush))
+                    for name, fn in (("direction", tlk.direction),
+                                     ("direction_streamed",
+                                      tlk.direction_streamed))}
+        print(f"  by n, n={n}: " + "; ".join(
+            f"{name} {1e3 * warm:.2f} us warm, {1e3 * cold:.2f} us L2 "
+            f"flushed" for name, (warm, cold) in sweep[n].items()),
+            flush=True)
+    if timing is not None:
+        timing["us_by_n"] = {
+            str(n): {name: [round(1e3 * v, 3) for v in pair]
+                     for name, pair in row.items()}
+            for n, row in sweep.items()}
+    n = max_n + 1
+    over = (torch.zeros(MEM_SIZE, n, device=dev),
+            torch.zeros(MEM_SIZE, n, device=dev), torch.zeros(n, device=dev),
+            torch.zeros(2 * MEM_SIZE, 2 * MEM_SIZE, device=dev),
+            torch.ones((), device=dev))
+    before = tlk.DIRECTION_LAUNCHES
+    try:
+        tlk.direction(*over)
+    except ValueError as e:
+        check(tlk.DIRECTION_LAUNCHES == before,
+              f"n={n}, the first over the cap, raises before any launch: "
+              f"{e}")
+    else:
+        check(False, f"n={n} is over the cap and must raise")
+    return worst, timing
+
+
+# ---------------------------------------------------------------------------
+def device_busy_ms(fn):
+    """Milliseconds the device spends in kernels and copies during
+    ``fn()``, from a profiler trace; None if the trace shows no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0))
+                   for e in prof.key_averages())
+    return total_us / 1e3 if total_us > 0 else None
+
+
+def hess_vec_fn(x, v, batch):
+    return losses.multinomial_logistic_hessvec(x, v, batch[0], batch[1],
+                                               None, REG)
+
+
+class FreeLoop:
+    """A request loop on the smoke's batches: minibatch b answers the b-th
+    ``calc_grad``, the round's merged minibatches every boundary request.
+    Points come back from the optimizer as numpy arrays and go to the card;
+    gradients, Hessian-vector products and function values are computed
+    there and handed over as device tensors."""
+
+    def __init__(self, opt, X, Y, x0, step, audit=None):
+        self.opt, self.X, self.Y, self.step = opt, X, Y, step
+        self.x = x0.cpu().numpy().copy()
+        self.audit = audit
+        self.tasks, self.infos, self.fvals = [], [], []
+        self.call_ms = {}
+        self.b = -1
+        self.req = self._run()
+
+    def _run(self):
+        t0 = time.perf_counter()
+        req = self.opt.run_optimizer(self.x, self.step)
+        ms = (time.perf_counter() - t0) * 1e3
+        self.tasks.append(req["task"])
+        self.infos.append(req["info"]["iteration_info"])
+        if len(self.tasks) > 1:     # the time of the call that did the work
+            self.call_ms.setdefault(self.tasks[-2], []).append(ms)
+        return req
+
+    def _at(self, a):
+        return torch.from_numpy(a).to(self.X.device, self.X.dtype)
+
+    def answer(self):
+        """Answer the pending request and run the optimizer to its next."""
+        task, at = self.req["task"], self.req["requested_on"]
+        if task == "calc_grad":
+            self.b += 1
+            b = self.b % NUM_BATCHES
+            g = grad_fn(self._at(at), (self.X[b], self.Y[b]))
+            if self.audit is not None:
+                self.audit(self, g)
+            self.opt.update_gradient(g)
+        else:
+            r = (self.b % NUM_BATCHES) // UPD_FREQ
+            rows = slice(r * UPD_FREQ, (r + 1) * UPD_FREQ)
+            big = _flat((self.X[rows], self.Y[rows]))
+            if task == "calc_hess_vec":
+                self.opt.update_hess_vec(hess_vec_fn(
+                    self._at(at[0]), self._at(at[1]), big))
+            elif task == "calc_fun_val_batch":
+                f = obj_fn(self._at(at), big)
+                self.fvals.append(f)
+                self.opt.update_function(f)
+            else:
+                raise SystemExit(f"chip_smoke: FAILED: unexpected task {task}")
+        self.req = self._run()
+
+    def run(self, steps):
+        """Answer requests until ``steps`` iterations are done and the
+        boundary work after the last one too."""
+        while not (self.req["task"] == "calc_grad"
+                   and self.opt.niter >= steps):
+            self.answer()
+
+
+def expected_sqn_tasks(steps):
+    """calc_grad before every step; calc_hess_vec after every boundary but
+    the first; the calc_grad request that ends the run."""
+    tasks = []
+    for i in range(1, steps + 1):
+        tasks.append("calc_grad")
+        if i % UPD_FREQ == 0 and i > UPD_FREQ:
+            tasks.append("calc_hess_vec")
+    return tasks + ["calc_grad"]
+
+
+def free_sqn_phase(dev):
+    phase("11. free-mode SQN at BibTeX shape: SQN_free request loop, 1 epoch")
+    X, Y, x0 = bench_data(dev)
+    Xf, Yf = X.reshape(-1, N_FEATURES), Y.reshape(-1, N_CLASSES)
+
+    def full_loss(x):
+        return float(losses.multinomial_logistic_loss(
+            torch.as_tensor(x, device=dev), Xf, Yf, None, REG))
+
+    # a call of a plain version on the card would be a fallback: count them
+    plain_calls = []
+    plain = {name: getattr(tlk, name) for name in
+             ("direction_ref", "direction_streamed_ref", "project_ref",
+              "project_adaqn_ref")}
+    for name, fn in plain.items():
+        setattr(tlk, name, lambda *a, _n=name, _f=fn: (
+            plain_calls.append(_n), _f(*a))[1])
+
+    audits = []
+
+    def audit(loop, g):
+        """After an accepted commit: the uncached oracle through the
+        project kernel against the cached direction the next step takes
+        (the same call on the same inputs)."""
+        if not (loop.tasks[-2:] == ["calc_hess_vec", "calc_grad"]
+                and loop.infos[-1] == "no_problems_encountered"):
+            return
+        mem = loop.opt.state.mem
+        keep = tlk.DIRECTION_LAUNCHES, tlk.LAUNCHES
+        used = two_loop_cached(g, mem, collapsed=True)
+        tlk.DIRECTION_LAUNCHES, tlk.LAUNCHES = keep
+        oracle = two_loop(g, mem.s, mem.y, mem.head, mem.count,
+                          use_pallas=True)
+        scale = float(used.abs().max())
+        err = float((oracle - used).abs().max())
+        audits.append(err / scale)
+        check(bool(torch.allclose(oracle, used, rtol=KERNEL_RTOL,
+                                  atol=KERNEL_RTOL * scale)),
+              f"after commit {len(audits)} ({int(mem.count)} pairs): "
+              f"two_loop(use_pallas=True) vs the cached direction "
+              f"max_abs_err={err:.3e} (max |d| {scale:.3e}) within rtol="
+              f"{KERNEL_RTOL} of the entry plus {KERNEL_RTOL} of max |d|")
+
+    chosen, _ = gate_choice(MEM_SIZE, N_FLAGSHIP, dev)
+    opt = SQN_free(mem_size=MEM_SIZE, bfgs_upd_freq=UPD_FREQ, use_float=True)
+    check(opt.device.type == "cuda", f"SQN_free runs on {opt.device} by "
+          "default")
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop = FreeLoop(opt, X, Y, x0, STEP, audit)
+    loop.run(NUM_BATCHES)
+    # the last boundary's commit, on the gradient the pending request asks
+    audit(loop, grad_fn(loop._at(loop.req["requested_on"]), (X[0], Y[0])))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    print(f"  1 epoch ({NUM_BATCHES} steps, {len(loop.tasks)} requests) in "
+          f"{wall:.3f} s, first call and the {len(audits)} audits included",
+          flush=True)
+    check(loop.tasks == expected_sqn_tasks(NUM_BATCHES),
+          f"request order: {NUM_BATCHES + 1} calc_grad, "
+          f"{loop.tasks.count('calc_hess_vec')} calc_hess_vec after the "
+          "later boundaries")
+    check(set(loop.infos) == {"no_problems_encountered"},
+          f"every iteration_info is no_problems_encountered "
+          f"({len(loop.infos)} calls), as in the JAX package's run")
+    launches = {chosen: counts.pop(chosen), "project": counts.pop("project")}
+    check(launches[chosen] == NUM_BATCHES and not any(counts.values()),
+          f"{chosen} launched {launches[chosen]} times for {NUM_BATCHES} "
+          f"steps; the other direction kernel and project_adaqn: {counts}")
+    check(launches["project"] == len(audits) == 5,
+          f"project launched {launches['project']} times, once per audit "
+          "after the 5 commits")
+    check(not plain_calls, "no plain version ran on the card "
+          f"({len(plain_calls)} calls)")
+    count = int(opt.state.mem.count)
+    check(count == 5, f"ring count {count} == 5")
+    loss1 = full_loss(loop.x)
+    rel = abs(loss1 - JAX_FREE_SQN_LOSS_1_EPOCH) / JAX_FREE_SQN_LOSS_1_EPOCH
+    check(rel <= LOSS_RTOL,
+          f"loss after 1 epoch {loss1:.4f} vs the JAX package's SQN_free "
+          f"{JAX_FREE_SQN_LOSS_1_EPOCH} (CPU): rel diff {rel:.3e} <= "
+          f"{LOSS_RTOL}")
+
+    trainer = FusedTrainer("SQN", SQNConfig.create(
+        mem_size=MEM_SIZE, bfgs_upd_freq=UPD_FREQ), grad_fn,
+        hess_vec_fn=hess_vec_fn)
+    fstate, _ = trainer.epochs(trainer.init(x0), (X, Y), STEP, nepochs=1,
+                               aligned=True)
+    x_fused = fstate.x.cpu().numpy()
+    err = float(np.max(np.abs(loop.x - x_fused)))
+    check(np.allclose(loop.x, x_fused, rtol=PARITY_RTOL, atol=PARITY_ATOL),
+          f"x vs FusedTrainer('SQN') on the same batches: max_abs_err="
+          f"{err:.3e} within rtol={PARITY_RTOL} atol={PARITY_ATOL}")
+
+    for task, ms in sorted(loop.call_ms.items()):
+        print(f"  run_optimizer answering {task}: host wall median "
+              f"{statistics.median(ms):.4f} ms over {len(ms)} calls "
+              f"(min {min(ms):.4f}, max {max(ms):.4f})", flush=True)
+    # a second epoch, steady: whole-loop rate, and the device's share of it
+    t0 = time.perf_counter()
+    loop.audit = None
+    loop.run(2 * NUM_BATCHES)
+    torch.cuda.synchronize()
+    steady = time.perf_counter() - t0
+    print(f"  steady epoch of the request loop (run_optimizer, transfers, "
+          f"gradients): {NUM_BATCHES / steady:.1f} iters/s", flush=True)
+    busy = device_busy_ms(lambda: loop.run(2 * NUM_BATCHES + UPD_FREQ))
+    t0 = time.perf_counter()
+    loop.run(2 * NUM_BATCHES + 2 * UPD_FREQ)
+    torch.cuda.synchronize()
+    round_ms = (time.perf_counter() - t0) * 1e3
+    print("  one round of the request loop: wall "
+          f"{round_ms:.2f} ms, device busy "
+          + ("not measured (the trace shows no device time)" if busy is None
+             else f"{busy:.2f} ms under the profiler "
+             f"({100 * busy / round_ms:.1f}% of the wall without it)"),
+          flush=True)
+    free_ips = NUM_BATCHES / steady
+    # run_optimizer alone: ten calc_grad answers inside one round, fed a
+    # gradient computed beforehand (a timing, after every check above)
+    g_fixed = grad_fn(loop._at(loop.x), (X[0], Y[0]))
+
+    def ten_calls():
+        for _ in range(10):
+            opt.update_gradient(g_fixed)
+            opt.run_optimizer(loop.x, STEP)
+    busy = device_busy_ms(ten_calls)
+    print("  run_optimizer answering calc_grad, device busy per call: "
+          + ("not measured (the trace shows no device time)" if busy is None
+             else f"{busy / 10:.4f} ms (profiler, 10 calls)"), flush=True)
+
+    # mem_size = 20: 47.9 MB of pairs and gradient, over any H100's cap
+    m20 = 20
+    check(not tlk.direction_fits(m20, N_FLAGSHIP, dev),
+          f"m={m20}, n={N_FLAGSHIP} is over the one-read kernel's cap "
+          f"({tlk.direction_max_n(m20, dev)})")
+    opt20 = SQN_free(mem_size=m20, bfgs_upd_freq=UPD_FREQ, use_float=True)
+    reset_launches()
+    loop20 = FreeLoop(opt20, X, Y, x0, STEP)
+    loop20.run(3 * UPD_FREQ)
+    counts = read_launches()
+    streamed = counts.pop("direction_streamed")
+    check(streamed == 3 * UPD_FREQ and not any(counts.values()),
+          f"mem_size={m20}: direction_streamed launched {streamed} times "
+          f"for {3 * UPD_FREQ} steps; the other kernels: {counts}")
+    check(loop20.tasks == expected_sqn_tasks(3 * UPD_FREQ)
+          and set(loop20.infos) == {"no_problems_encountered"},
+          f"mem_size={m20}: request order and iteration_info")
+    check(not plain_calls, "no plain version ran on the card "
+          f"({len(plain_calls)} calls)")
+    loss20 = full_loss(loop20.x)
+    rel = abs(loss20 - JAX_FREE_SQN_LOSS_3_ROUNDS) / JAX_FREE_SQN_LOSS_3_ROUNDS
+    check(rel <= LOSS_RTOL and int(opt20.state.mem.count) == 2,
+          f"mem_size={m20}: loss after 3 rounds {loss20:.4f} vs the JAX "
+          f"package's {JAX_FREE_SQN_LOSS_3_ROUNDS}: rel diff {rel:.3e} <= "
+          f"{LOSS_RTOL}; 2 live pairs")
+    for name, fn in plain.items():
+        setattr(tlk, name, fn)
+    launches["direction_streamed"] = streamed
+    return launches, free_ips, max(audits)
+
+
+def free_adaqn_phase(dev):
+    phase("12. free-mode adaQN at BibTeX shape: adaQN_free request loop, "
+          f"{FREE_ADAQN_BOUNDARIES} boundaries")
+    X, Y, x0 = bench_data(dev)
+    steps = FREE_ADAQN_BOUNDARIES * UPD_FREQ
+    want_infos = JAX_ADAQN_BOUNDARY_INFOS[:FREE_ADAQN_BOUNDARIES]
+    want_f = JAX_F64_GUARD_F[:FREE_ADAQN_BOUNDARIES]
+    launches = 0
+    for name, use_float, rtol in (("float64", False, F64_RTOL),
+                                  ("float32, use_pallas=True", True,
+                                   EARLY_RTOL)):
+        opt = adaQN_free(**ADAQN_KW, use_float=use_float)
+        data = (X, Y, x0) if use_float else (X.double(), Y.double(),
+                                             x0.double())
+        if use_float:
+            opt._cfg = dataclasses.replace(opt._cfg, use_pallas=True)
+        reset_launches()
+        t0 = time.perf_counter()
+        loop = FreeLoop(opt, *data, ADAQN_STEP)
+        loop.run(steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        got = counts.pop("project_adaqn")
+        check(got == (steps if use_float else 0)
+              and not any(counts.values()),
+              f"{name}: project_adaqn launched {got} times for {steps} "
+              f"steps; the other kernels: {counts}")
+        f = torch.stack(loop.fvals).cpu().tolist()
+        rel = max_rel(f, want_f)
+        check(len(f) == len(want_f) and rel <= rtol,
+              f"{name}: the {len(f)} function values it asked for, "
+              f"{', '.join(f'{v:.4f}' for v in f)}, vs the JAX package's "
+              f"float64 run: max rel diff {rel:.3e} <= {rtol}")
+        # the info of a boundary comes with the request after its f (or,
+        # at the first, after its last step)
+        binfos = [loop.infos[i + 1] for i, t in enumerate(loop.tasks)
+                  if t == "calc_fun_val_batch"]
+        names = {200: "no_problems_encountered", 201: "func_increased"}
+        check(binfos == [names[c] for c in want_infos],
+              f"{name}: boundary infos {binfos}: the JAX package's")
+        check(loop.tasks.count("calc_grad") == steps + 1
+              and bool(np.isfinite(loop.x).all()),
+              f"{name}: {steps} steps in {wall:.3f} s, x finite")
+        launches += got
+        for task, ms in sorted(loop.call_ms.items()):
+            print(f"  {name}: run_optimizer answering {task}: host wall "
+                  f"median {statistics.median(ms):.4f} ms over {len(ms)} "
+                  "calls", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke needs an NVIDIA GPU",
@@ -784,40 +1366,61 @@ def main():
         print("  " + built[1].strip().replace("\n", "\n  "), flush=True)
 
     max_abs, timing = kernel_phase(dev)
-    launches, ips = main_path_phase(dev)
+    sqn_launches, ips, streamed_ips = main_path_phase(dev)
     parity_phase(dev)
     adaqn_max_abs, adaqn_share, adaqn_timing = adaqn_kernel_phase(dev)
     adaqn_launches, adaqn_ips = adaqn_main_path_phase(dev)
     adaqn_parity_phase(dev)
+    project_max_abs, project_share, project_timing = project_kernel_phase(dev)
+    direction_max_abs, direction_timing = direction_kernel_phase(dev)
+    free_launches, free_ips, audit_err = free_sqn_phase(dev)
+    free_adaqn_launches = free_adaqn_phase(dev)
 
+    # launches: the counts of the paths driven above (fused SQN, fused adaQN,
+    # free-mode SQN at m = 10 and m = 20, free-mode adaQN), each read after
+    # a path that began with every count at 0
+    by_path = {
+        "direction": {"fused_sqn": sqn_launches.get("direction", 0),
+                      "free_sqn": free_launches.get("direction", 0)},
+        "direction_streamed": {
+            "fused_sqn": sqn_launches.get("direction_streamed", 0),
+            "free_sqn": free_launches.get("direction_streamed", 0)},
+        "project": {"free_sqn_oracle_audits": free_launches["project"]},
+        "project_adaqn": {"fused_adaqn": adaqn_launches,
+                          "free_adaqn": free_adaqn_launches},
+    }
+    for name, paths in by_path.items():
+        check(sum(paths.values()) > 0,
+              f"{name} was launched on a driven path: {paths}")
     f32 = timing["float32"]
-    print(json.dumps({"kernels": [{
-        "name": "direction_streamed",
-        "route": "cuda",
-        "source": "stochqn_tpu_torch/csrc/direction_streamed.cu",
-        "replaces": "stochqn_tpu/ops/pallas/two_loop_kernel.py:309",
-        "launches": launches,
-        "max_abs_err": max_abs,
-        "ms": f32["ms"],
-        "plain_ms": f32["plain_ms"],
-        "cold_ms": f32["cold_ms"],
-        "cold_plain_ms": f32["cold_plain_ms"],
-        "host_ms": f32["host_ms"],
-        "plain_host_ms": f32["plain_host_ms"],
-        "bf16": timing["bfloat16"],
-        "iters_per_s": ips,
-    }, {
-        "name": "project_adaqn",
-        "route": "cuda",
-        "source": "stochqn_tpu_torch/csrc/project_adaqn.cu",
-        "replaces": "stochqn_tpu/ops/pallas/two_loop_kernel.py:390",
-        "launches": adaqn_launches,
-        "max_abs_err": adaqn_max_abs,
-        "worst_err_share_of_f64_bound": adaqn_share,
-        **adaqn_timing,
-        "iters_per_s": adaqn_ips["kernel"],
-        "plain_route_iters_per_s": adaqn_ips["matvec"],
-    }]}))
+    src = "stochqn_tpu_torch/csrc/"
+    tpu = "stochqn_tpu/ops/pallas/two_loop_kernel.py:"
+
+    def entry(name, line, max_abs_err, times, bound_keys, **more):
+        return {"name": name, "route": "cuda", "source": f"{src}{name}.cu",
+                "replaces": f"{tpu}{line}",
+                "launches": sum(by_path[name].values()),
+                "launches_by_path": by_path[name],
+                "max_abs_err": max_abs_err, **times, **bound_keys, **more}
+    print(json.dumps({"kernels": [
+        entry("direction_streamed", 309, max_abs, f32,
+              direction_bound(MEM_SIZE, N_FLAGSHIP), bf16=timing["bfloat16"],
+              iters_per_s=streamed_ips),
+        entry("project_adaqn", 390, adaqn_max_abs, adaqn_timing,
+              project_adaqn_bound(MEM_SIZE, N_FLAGSHIP),
+              worst_err_share_of_f64_bound=adaqn_share,
+              iters_per_s=adaqn_ips["kernel"],
+              plain_route_iters_per_s=adaqn_ips["matvec"]),
+        entry("project", 85, project_max_abs, project_timing,
+              project_bound(MEM_SIZE, N_FLAGSHIP),
+              worst_err_share_of_f64_bound=project_share,
+              oracle_vs_cached_direction_max_err_over_max_d=audit_err),
+        entry("direction", 196, direction_max_abs, direction_timing or {
+            "ms": None, "plain_ms": None, "library_ms": None},
+            direction_bound(MEM_SIZE, N_FLAGSHIP),
+            iters_per_s=ips if "direction" in sqn_launches else None,
+            free_mode_iters_per_s=free_ips),
+    ]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

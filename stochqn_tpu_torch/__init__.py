@@ -12,7 +12,12 @@ block-layout pair commit, the logistic losses and
 state with the Fisher ring, the AdaGrad / RMSProp accumulators, the
 empirical-Fisher ``y``, the diagonal-H0 two-loop with its projection on a
 hand-written Hopper kernel (``csrc/project_adaqn.cu``) and
-``FusedTrainer("adaQN")``.  ROADMAP.md lists what comes next.
+``FusedTrainer("adaQN")``; and the free-mode protocol tier:
+``core/protocol.py``, ``core/sqn.advance``, ``core/adaqn.advance`` and the
+request-loop classes ``SQN_free`` / ``adaQN_free``, with the uncached
+oracles ``two_loop`` / ``two_loop_sequential`` and the last two kernels
+(``csrc/project.cu``, ``csrc/direction.cu``).  ROADMAP.md lists what comes
+next.
 """
 from stochqn_tpu_torch.convert import (adaqn_state_from_numpy,
                                        adaqn_state_to_numpy,
@@ -22,27 +27,32 @@ from stochqn_tpu_torch.convert import (adaqn_state_from_numpy,
                                        sqn_state_to_numpy)
 from stochqn_tpu_torch.core.config import AdaQNConfig, SQNConfig
 from stochqn_tpu_torch.core.enums import Info, Task
+from stochqn_tpu_torch.core.protocol import AdvanceResult
 from stochqn_tpu_torch.core.state import (AdaQNState, BFGSMemory,
                                           FisherMemory, SQNState)
+from stochqn_tpu_torch.free import SQN_free, adaQN_free
 from stochqn_tpu_torch.fused import FusedTrainer, batchify
 from stochqn_tpu_torch.models import losses
 from stochqn_tpu_torch.ops.kernels.two_loop_kernel import (
-    direction_streamed, direction_streamed_ref, project_adaqn,
-    project_adaqn_ref)
+    direction, direction_ref, direction_streamed, direction_streamed_ref,
+    project, project_adaqn, project_adaqn_ref, project_ref)
 from stochqn_tpu_torch.ops.pairs import (commit_pair, conditional_flush,
                                          direction_is_bad, fisher_y)
-from stochqn_tpu_torch.ops.two_loop import two_loop_cached
+from stochqn_tpu_torch.ops.two_loop import (two_loop, two_loop_cached,
+                                            two_loop_sequential)
 
 __all__ = [
     "Task", "Info",
     "SQNConfig", "AdaQNConfig",
     "BFGSMemory", "SQNState", "FisherMemory", "AdaQNState",
+    "AdvanceResult", "SQN_free", "adaQN_free",
     "FusedTrainer", "batchify",
     "losses",
     "commit_pair", "conditional_flush", "direction_is_bad", "fisher_y",
-    "two_loop_cached",
+    "two_loop", "two_loop_cached", "two_loop_sequential",
+    "direction", "direction_ref",
     "direction_streamed", "direction_streamed_ref",
-    "project_adaqn", "project_adaqn_ref",
+    "project", "project_ref", "project_adaqn", "project_adaqn_ref",
     "sqn_state_from_numpy", "sqn_state_to_numpy",
     "adaqn_state_from_numpy", "adaqn_state_to_numpy",
     "fisher_memory_from_numpy", "fisher_memory_to_numpy",

@@ -21,7 +21,8 @@
 //   1. project_partials: a grid that strides over n.  Each thread keeps
 //      its 2m running dot products W[r, j] * g[j] in registers (g is read
 //      once per column, W once per element, coalesced), and each block
-//      reduces them to partials[block, 2m].  No atomics, so the result is
+//      reduces them to partials[2m, block] (a row's partials side by side,
+//      so that pass 2 reads them from neighbouring addresses).  No atomics, so the result is
 //      the same from run to run.
 //   2. mix: one block sums the partials in a fixed order (one warp per row
 //      of W) into wg = W g and forms u = C wg.
@@ -62,7 +63,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Pass 1: partials[b, r] = sum over the columns j of block b of W[r, j] g[j].
+// Pass 1: partials[r, b] = sum over the columns j of block b of W[r, j] g[j].
 // MAXM bounds m at compile time so the accumulators stay in registers.
 template <typename T, int MAXM>
 __global__ void __launch_bounds__(kThreads)
@@ -107,11 +108,11 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x < 2 * m) {
     float t = 0.f;
     for (int w = 0; w < kWarps; ++w) t += red[w][threadIdx.x];
-    partials[static_cast<int64_t>(blockIdx.x) * 2 * m + threadIdx.x] = t;
+    partials[static_cast<int64_t>(threadIdx.x) * gridDim.x + blockIdx.x] = t;
   }
 }
 
-// Pass 2 (one block): wg = sum_b partials[b, :] in a fixed order, one warp
+// Pass 2 (one block): wg = sum_b partials[:, b] in a fixed order, one warp
 // per row of W; u = C wg.
 __global__ void __launch_bounds__(kMixThreads)
     mix(const float* __restrict__ partials, int num_partials, int two_m,
@@ -122,7 +123,7 @@ __global__ void __launch_bounds__(kMixThreads)
   for (int r = warp; r < two_m; r += kMixThreads / 32) {
     float t = 0.f;
     for (int b = lane; b < num_partials; b += 32) {
-      t += partials[static_cast<int64_t>(b) * two_m + r];
+      t += partials[static_cast<int64_t>(r) * num_partials + b];
     }
     t = warp_sum(t);
     if (lane == 0) wg[r] = t;

@@ -33,7 +33,6 @@ example axis, and epoch data has leaves ``[B, bs, ...]``.
 from __future__ import annotations
 
 import dataclasses
-import numbers
 from typing import Any, Callable, Optional, Tuple
 
 import torch
@@ -41,12 +40,12 @@ import torch
 from stochqn_tpu_torch.core import adaqn, sqn
 from stochqn_tpu_torch.core.config import AdaQNConfig, SQNConfig
 from stochqn_tpu_torch.core.enums import Info
+from stochqn_tpu_torch.core.protocol import (commit_info, no_bad,
+                                             scalar_like, step_info)
 from stochqn_tpu_torch.core.state import AdaQNState, SQNState
 from stochqn_tpu_torch.models.losses import hvp_from_grad
-from stochqn_tpu_torch.ops.accumulators import diag_rescal
 from stochqn_tpu_torch.ops.pairs import (commit_pair, conditional_flush,
-                                         direction_is_bad, fisher_y)
-from stochqn_tpu_torch.ops.two_loop import two_loop_cached
+                                         fisher_y)
 
 Batch = Any
 GradFn = Callable[[torch.Tensor, Batch], torch.Tensor]
@@ -56,9 +55,6 @@ ObjFn = Callable[[torch.Tensor, Batch], torch.Tensor]
 # one the engine uses ``torch.func.jvp`` of ``grad_fn``.
 HessVecFn = Callable[[torch.Tensor, torch.Tensor, Batch], torch.Tensor]
 
-_NO_PROB = int(Info.NO_PROBLEMS_ENCOUNTERED)
-_NAN = int(Info.SEARCH_DIRECTION_WAS_NAN)
-_CURV = int(Info.CURVATURE_TOO_SMALL)
 _FINC = int(Info.FUNC_INCREASED)
 
 
@@ -72,28 +68,6 @@ def _tree_map(fn, batch):
 
 def _first_leaf(batch) -> torch.Tensor:
     return batch if isinstance(batch, torch.Tensor) else _first_leaf(batch[0])
-
-
-def _info(bad: torch.Tensor, accepted: Optional[torch.Tensor] = None
-          ) -> torch.Tensor:
-    info = torch.where(bad, _NAN, _NO_PROB)
-    if accepted is not None:
-        info = torch.where(accepted, info, _CURV)
-    return info.to(torch.int32)
-
-
-def _no_bad(x: torch.Tensor) -> torch.Tensor:
-    return torch.zeros((), dtype=torch.bool, device=x.device)
-
-
-def _step_tensor(step_size, x: torch.Tensor) -> torch.Tensor:
-    """``step_size`` as a tensor of ``x``'s dtype on ``x``'s device.  A
-    Python number is filled on the device: copying it from the host would
-    wait for the device."""
-    if isinstance(step_size, numbers.Real):
-        return torch.full((), float(step_size), dtype=x.dtype,
-                          device=x.device)
-    return torch.as_tensor(step_size, dtype=x.dtype, device=x.device)
 
 
 def _flat(batch):
@@ -110,16 +84,8 @@ def _flat(batch):
 def _sqn_base(cfg: SQNConfig, grad_fn: GradFn, state: SQNState,
               batch: Batch, step_size: torch.Tensor
               ) -> Tuple[SQNState, torch.Tensor]:
-    """The per-iteration work of ``run_SQN`` section 1 before any
-    ``upd_freq`` boundary (``src/stochqn.c:1050-1073``)."""
-    g = grad_fn(state.x, batch)
-    d = two_loop_cached(g, state.mem, collapsed=True)
-    bad = direction_is_bad(d) if cfg.check_nan else _no_bad(d)
-    x_new = torch.where(bad, state.x, state.x - step_size * d)
-    state = state.replace(x=x_new, mem=conditional_flush(state.mem, bad),
-                          niter=state.niter + 1, x_sum=state.x_sum + x_new,
-                          section=torch.ones_like(state.section))
-    return state, bad
+    """The minibatch gradient and :func:`core.sqn.step` on it."""
+    return sqn.step(cfg, state, grad_fn(state.x, batch), step_size)
 
 
 def _sqn_boundary(cfg: SQNConfig, grad_fn: GradFn, state: SQNState,
@@ -160,35 +126,15 @@ def _sqn_boundary(cfg: SQNConfig, grad_fn: GradFn, state: SQNState,
         # archive happens on first AND (accept or reject) later rounds
         st = st.replace(mem=mem2, x_avg_prev=x_avg,
                         x_sum=torch.zeros_like(st.x_sum))
-    info = torch.where(is_first, _info(bad), _info(bad, acc))
-    return st, info
+    info = step_info(bad)
+    return st, torch.where(is_first, info, commit_info(acc, info))
 
 
 def _adaqn_base(cfg: AdaQNConfig, grad_fn: GradFn, state: AdaQNState,
                 batch: Batch, step_size: torch.Tensor
                 ) -> Tuple[AdaQNState, torch.Tensor]:
-    """The per-iteration adaQN work before any ``upd_freq`` boundary
-    (``src/stochqn.c:1170-1197``), with the Fisher append per step
-    (``src/stochqn.c:1174``).  A NaN direction flushes the pair memory
-    only: the reference leaves the Fisher flush commented out
-    (``src/stochqn.c:1181``)."""
-    g = grad_fn(state.x, batch)
-    if not cfg.use_grad_diff:
-        state = state.replace(fisher=state.fisher.append(g))
-    rescaled, acc_sq = diag_rescal(g, state.grad_sum_sq, cfg.scal_reg,
-                                   cfg.rmsprop_weight)
-    h0_diag = (rescaled if cfg.h0_exact_reference
-               else torch.rsqrt(acc_sq + cfg.scal_reg))
-    d_mem = two_loop_cached(g, state.mem, diag=h0_diag,
-                            use_pallas=cfg.use_pallas, coupling=cfg.coupling)
-    d = torch.where(state.mem.count > 0, d_mem, rescaled)
-    bad = direction_is_bad(d) if cfg.check_nan else _no_bad(d)
-    x_new = torch.where(bad, state.x, state.x - step_size * d)
-    state = state.replace(x=x_new, mem=conditional_flush(state.mem, bad),
-                          grad_sum_sq=acc_sq, niter=state.niter + 1,
-                          x_sum=state.x_sum + x_new,
-                          section=torch.ones_like(state.section))
-    return state, bad
+    """The minibatch gradient and :func:`core.adaqn.step` on it."""
+    return adaqn.step(cfg, state, grad_fn(state.x, batch), step_size)
 
 
 def _adaqn_boundary(cfg: AdaQNConfig, grad_fn: GradFn,
@@ -209,7 +155,7 @@ def _adaqn_boundary(cfg: AdaQNConfig, grad_fn: GradFn,
     x_avg = st.x_sum * (1.0 / cfg.upd_freq)
     is_first = st.niter == cfg.upd_freq
     not_first = torch.logical_not(is_first)
-    base_info = _info(bad)
+    base_info = step_info(bad)
 
     # function-value guard (src/stochqn.c:1272-1291)
     if cfg.max_incr > 0:
@@ -220,7 +166,7 @@ def _adaqn_boundary(cfg: AdaQNConfig, grad_fn: GradFn,
         # accept (or first): record f; reject: keep f_prev
         st = st.replace(f_prev=torch.where(reject, st.f_prev, f))
     else:
-        reject = _no_bad(x_avg)
+        reject = no_bad(x_avg)
 
     commit_ok = not_first & torch.logical_not(reject)
     s_cand = x_avg - st.x_avg_prev      # garbage on the first round; vetoed
@@ -250,8 +196,7 @@ def _adaqn_boundary(cfg: AdaQNConfig, grad_fn: GradFn,
             count=torch.where(reject, zero, st.fisher.count)),
         x=torch.where(reject, st.x_avg_prev, st.x),
         x_sum=torch.where(reject, x_avg, torch.zeros_like(st.x_sum)))
-    info = torch.where(reject, _FINC,
-                       torch.where(is_first | acc, base_info, _CURV))
+    info = torch.where(reject, _FINC, commit_info(is_first | acc, base_info))
     return st, info.to(torch.int32)
 
 
@@ -310,7 +255,7 @@ class FusedTrainer:
         round must start with ``niter % upd_freq == 0``.  Returns
         ``(state, infos[L])`` (int32)."""
         L = _first_leaf(round_data).shape[0]
-        eta = _step_tensor(step_size, state.x)
+        eta = scalar_like(step_size, state.x)
         base = _sqn_base if self.optimizer == "SQN" else _adaqn_base
         bads = []
         for i in range(L):
@@ -326,7 +271,7 @@ class FusedTrainer:
             state, binfo = _adaqn_boundary(self.cfg, self.grad_fn,
                                            self.obj_fn, state, big, fval,
                                            bads[-1])
-        infos = _info(torch.stack(bads))
+        infos = step_info(torch.stack(bads))
         infos[L - 1] = binfo
         return state, infos
 
@@ -376,7 +321,7 @@ class FusedTrainer:
         Alignment is resolved once, before the first epoch (see
         :meth:`epoch`); with ``aligned=True`` no device value is read on
         the host."""
-        steps = torch.broadcast_to(_step_tensor(step_size, state.x),
+        steps = torch.broadcast_to(scalar_like(step_size, state.x),
                                    (nepochs,))
         if aligned is None:
             L = self.cfg.upd_freq

@@ -1,12 +1,23 @@
 """The two-loop kernels and their plain PyTorch versions.
 
-``direction_streamed(s_mem, y_mem, grad, c, gamma)`` computes the collapsed
-SQN direction
+``direction_streamed(s_mem, y_mem, grad, c, gamma)`` and
+``direction(s_mem, y_mem, grad, c, gamma)`` compute the collapsed SQN
+direction
 
     d = gamma * g + W^T (C (W g)),   W = [s_mem; y_mem]  ([2m, n])
 
-the Hopper port of ``stochqn_tpu/ops/pallas/two_loop_kernel.py``'s
-``direction_streamed`` (``csrc/direction_streamed.cu``).
+the Hopper ports of ``stochqn_tpu/ops/pallas/two_loop_kernel.py``'s
+``direction_streamed`` (``csrc/direction_streamed.cu``: two passes over
+``W``, float32 or bfloat16 pairs, any size) and ``direction``
+(``csrc/direction.cu``: one read of ``W``, parked in shared memory across a
+grid-wide barrier, float32 pairs, capped by the card's shared memory; see
+:func:`direction_fits`).
+
+``project(s_mem, y_mem, grad)`` computes the uncached two-loop's projection
+
+    W g [2m],   W W^T [2m, 2m]
+
+in one pass, the port of the Pallas ``project`` (``csrc/project.cu``).
 
 ``project_adaqn(s_mem, y_mem, diag, grad)`` computes adaQN's projection
 
@@ -23,8 +34,9 @@ The sources are compiled by ``nvcc`` for ``sm_90a`` at first use, one
 Each wrapper checks its arguments, then dispatches on the device: CPU
 tensors go to its plain version, CUDA tensors to the kernel.  There is no
 fallback: a CUDA call that cannot launch the kernel raises.
-:data:`LAUNCHES` and :data:`PROJECT_ADAQN_LAUNCHES` count kernel launches,
-so a run can show that its main path went through the kernels.
+:data:`LAUNCHES`, :data:`DIRECTION_LAUNCHES`, :data:`PROJECT_LAUNCHES` and
+:data:`PROJECT_ADAQN_LAUNCHES` count kernel launches, so a run can show
+that its main path went through the kernels.
 """
 from __future__ import annotations
 
@@ -42,17 +54,22 @@ import torch
 
 # Kernel launches made by :func:`direction_streamed` (one per direction).
 LAUNCHES = 0
+# Kernel launches made by :func:`direction` (one per direction).
+DIRECTION_LAUNCHES = 0
+# Kernel launches made by :func:`project` (one per projection).
+PROJECT_LAUNCHES = 0
 # Kernel launches made by :func:`project_adaqn` (one per projection).
 PROJECT_ADAQN_LAUNCHES = 0
 
 _CSRC = Path(__file__).resolve().parents[2] / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build"
-_SOURCES = ("direction_streamed.cu", "project_adaqn.cu")
+_SOURCES = ("direction_streamed.cu", "direction.cu", "project.cu",
+            "project_adaqn.cu")
 _COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                   "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _STORAGE = (torch.float32, torch.bfloat16)
-_MAX_MEM = 32                 # both kernels' largest m
+_MAX_MEM = 32                 # every kernel's largest m
 _PARTIAL_COLS = 1024          # columns per direction pass-1 block, at least
 _MAX_PARTIALS = 1024          # direction pass-1 blocks, at most
 
@@ -72,35 +89,37 @@ def direction_streamed_ref(s_mem: torch.Tensor, y_mem: torch.Tensor,
     return gamma * grad + u @ w
 
 
-def _check(s_mem, y_mem, grad, c, gamma):
+def _check(name, storage, s_mem, y_mem, grad, c, gamma):
+    """Argument checks of both direction wrappers; ``storage`` lists the
+    pair dtypes ``name`` takes."""
     tensors = (s_mem, y_mem, grad, c, gamma)
     dev = s_mem.device
     if any(t.device != dev for t in tensors):
-        raise ValueError("direction_streamed: all tensors must be on one "
+        raise ValueError(f"{name}: all tensors must be on one "
                          f"device, got {[str(t.device) for t in tensors]}")
-    if s_mem.dtype not in _STORAGE or y_mem.dtype != s_mem.dtype:
-        raise TypeError("direction_streamed: s_mem and y_mem must both be "
-                        f"float32 or both bfloat16, got {s_mem.dtype}, "
-                        f"{y_mem.dtype}")
-    for name, t in (("grad", grad), ("c", c), ("gamma", gamma)):
+    if s_mem.dtype not in storage or y_mem.dtype != s_mem.dtype:
+        kinds = " or both ".join(str(t)[6:] for t in storage)
+        raise TypeError(f"{name}: s_mem and y_mem must both be {kinds}, "
+                        f"got {s_mem.dtype}, {y_mem.dtype}")
+    for what, t in (("grad", grad), ("c", c), ("gamma", gamma)):
         if t.dtype != torch.float32:
-            raise TypeError(f"direction_streamed: {name} must be float32, "
+            raise TypeError(f"{name}: {what} must be float32, "
                             f"got {t.dtype}")
     if s_mem.dim() != 2 or y_mem.shape != s_mem.shape:
-        raise ValueError("direction_streamed: s_mem and y_mem must be "
+        raise ValueError(f"{name}: s_mem and y_mem must be "
                          f"[m, n] alike, got {tuple(s_mem.shape)}, "
                          f"{tuple(y_mem.shape)}")
     m, n = s_mem.shape
     if not 1 <= m <= _MAX_MEM or n < 1:
-        raise ValueError(f"direction_streamed: need 1 <= m <= {_MAX_MEM} "
+        raise ValueError(f"{name}: need 1 <= m <= {_MAX_MEM} "
                          f"and n >= 1, got m={m}, n={n}")
     if grad.shape != (n,) or c.shape != (2 * m, 2 * m) or gamma.numel() != 1:
         raise ValueError(
-            f"direction_streamed: expected grad [{n}], c [{2 * m}, {2 * m}] "
+            f"{name}: expected grad [{n}], c [{2 * m}, {2 * m}] "
             f"and a one-element gamma, got {tuple(grad.shape)}, "
             f"{tuple(c.shape)}, {tuple(gamma.shape)}")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("direction_streamed: tensors must be contiguous")
+        raise ValueError(f"{name}: tensors must be contiguous")
 
 
 def _on_cuda(name: str, t: torch.Tensor) -> bool:
@@ -120,7 +139,7 @@ def direction_streamed(s_mem: torch.Tensor, y_mem: torch.Tensor,
     contiguous and on one device.  Returns ``d [n]`` float32.
     """
     global LAUNCHES
-    _check(s_mem, y_mem, grad, c, gamma)
+    _check("direction_streamed", _STORAGE, s_mem, y_mem, grad, c, gamma)
     if not _on_cuda("direction_streamed", s_mem):
         return direction_streamed_ref(s_mem, y_mem, grad, c, gamma)
     m, n = s_mem.shape
@@ -142,6 +161,142 @@ def direction_streamed(s_mem: torch.Tensor, y_mem: torch.Tensor,
     return d
 
 
+def direction_ref(s_mem: torch.Tensor, y_mem: torch.Tensor,
+                  grad: torch.Tensor, c: torch.Tensor,
+                  gamma: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`direction`: the same function as
+    :func:`direction_streamed_ref`."""
+    return direction_streamed_ref(s_mem, y_mem, grad, c, gamma)
+
+
+@functools.lru_cache(maxsize=None)
+def _direction_max_n(m: int, device_index: int) -> int:
+    with torch.cuda.device(device_index):
+        return int(_library().sqn_direction_max_n(m))
+
+
+def direction_max_n(m: int, device: torch.device) -> int:
+    """The largest ``n`` :func:`direction` takes for ``m`` pairs on the
+    CUDA ``device``: what the shared memory of its SMs can park, worked out
+    by the kernel's source from the device's properties."""
+    device = torch.device(device)
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    return _direction_max_n(m, index)
+
+
+def direction_fits(m: int, n: int, device: torch.device) -> bool:
+    """Whether :func:`direction` takes ``[m, n]`` pairs on ``device``: any
+    shape on the CPU (the plain version), ``n`` up to
+    :func:`direction_max_n` on a card."""
+    device = torch.device(device)
+    return device.type != "cuda" or n <= direction_max_n(m, device)
+
+
+def direction(s_mem: torch.Tensor, y_mem: torch.Tensor,
+              grad: torch.Tensor, c: torch.Tensor,
+              gamma: torch.Tensor) -> torch.Tensor:
+    """``gamma * grad + W^T (c @ (W grad))`` with ``W = [s_mem; y_mem]``,
+    ``W`` read from device memory once.
+
+    ``s_mem``/``y_mem`` ``[m, n]``, ``grad`` ``[n]``, ``c`` ``[2m, 2m]`` and
+    the one-element ``gamma``; all float32, contiguous and on one device.
+    Returns ``d [n]`` float32.  On CUDA a shape over the card's cap
+    (:func:`direction_fits`) raises: :func:`direction_streamed` has none.
+    """
+    global DIRECTION_LAUNCHES
+    _check("direction", (torch.float32,), s_mem, y_mem, grad, c, gamma)
+    if not _on_cuda("direction", s_mem):
+        return direction_ref(s_mem, y_mem, grad, c, gamma)
+    m, n = s_mem.shape
+    if not direction_fits(m, n, s_mem.device):
+        raise ValueError(
+            f"direction: m={m}, n={n} is over what this card's shared "
+            f"memory parks (n <= {direction_max_n(m, s_mem.device)}); "
+            "direction_streamed takes any size")
+    lib = _library()
+    with torch.cuda.device(s_mem.device):
+        d = torch.empty(n, dtype=torch.float32, device=s_mem.device)
+        scratch = torch.empty(lib.sqn_direction_scratch(m, n),
+                              dtype=torch.float32, device=s_mem.device)
+        stream = torch.cuda.current_stream(s_mem.device).cuda_stream
+        err = lib.sqn_direction(s_mem.data_ptr(), y_mem.data_ptr(),
+                                grad.data_ptr(), c.data_ptr(),
+                                gamma.data_ptr(), d.data_ptr(),
+                                scratch.data_ptr(), m, n, stream)
+    if err != 0:
+        raise RuntimeError(f"direction: kernel launch failed with CUDA "
+                           f"error {err}")
+    DIRECTION_LAUNCHES += 1
+    return d
+
+
+def project_ref(s_mem: torch.Tensor, y_mem: torch.Tensor,
+                grad: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: ``W`` formed, then two float32 products (the
+    JAX package's XLA reference for the kernel)."""
+    w = torch.cat([s_mem, y_mem], dim=0)
+    return w @ grad, w @ w.T
+
+
+def _check_projection(name, s_mem, y_mem, **vectors):
+    """Argument checks of both projection wrappers; ``vectors`` are the
+    ``[n]`` arguments by name."""
+    tensors = (s_mem, y_mem, *vectors.values())
+    dev = s_mem.device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: all tensors must be on one device, "
+                         f"got {[str(t.device) for t in tensors]}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{name}: all tensors must be float32, got "
+                        f"{[t.dtype for t in tensors]}")
+    if s_mem.dim() != 2 or y_mem.shape != s_mem.shape:
+        raise ValueError(f"{name}: s_mem and y_mem must be [m, n] "
+                         f"alike, got {tuple(s_mem.shape)}, "
+                         f"{tuple(y_mem.shape)}")
+    m, n = s_mem.shape
+    if not 1 <= m <= _MAX_MEM or n < 1:
+        raise ValueError(f"{name}: need 1 <= m <= {_MAX_MEM} and "
+                         f"n >= 1, got m={m}, n={n}")
+    if any(v.shape != (n,) for v in vectors.values()):
+        raise ValueError(
+            f"{name}: expected {' and '.join(vectors)} [{n}], got "
+            f"{', '.join(str(tuple(v.shape)) for v in vectors.values())}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def project(s_mem: torch.Tensor, y_mem: torch.Tensor, grad: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(W grad [2m], W W^T [2m, 2m])`` with ``W = [s_mem; y_mem]``.
+
+    ``s_mem``/``y_mem`` ``[m, n]`` and ``grad`` ``[n]``; all float32,
+    contiguous and on one device.  Returns float32 tensors (views of one
+    buffer on CUDA); the Gram is exactly symmetric there.
+    """
+    global PROJECT_LAUNCHES
+    _check_projection("project", s_mem, y_mem, grad=grad)
+    if not _on_cuda("project", s_mem):
+        return project_ref(s_mem, y_mem, grad)
+    m, n = s_mem.shape
+    lib = _library()
+    sms = _sm_count(s_mem.device.index)
+    with torch.cuda.device(s_mem.device):
+        out = torch.empty(2 * m + 4 * m * m, dtype=torch.float32,
+                          device=s_mem.device)
+        scratch = torch.empty(lib.sqn_project_scratch(m, n, sms),
+                              dtype=torch.float32, device=s_mem.device)
+        stream = torch.cuda.current_stream(s_mem.device).cuda_stream
+        err = lib.sqn_project(s_mem.data_ptr(), y_mem.data_ptr(),
+                              grad.data_ptr(), out.data_ptr(),
+                              scratch.data_ptr(), m, n, sms, stream)
+    if err != 0:
+        raise RuntimeError(f"project: kernel launch failed with CUDA "
+                           f"error {err}")
+    PROJECT_LAUNCHES += 1
+    return out[:2 * m], out[2 * m:].view(2 * m, 2 * m)
+
+
 def project_adaqn_ref(s_mem: torch.Tensor, y_mem: torch.Tensor,
                       diag: torch.Tensor, grad: torch.Tensor
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -150,30 +305,6 @@ def project_adaqn_ref(s_mem: torch.Tensor, y_mem: torch.Tensor,
     wg = torch.cat([s_mem, y_mem], dim=0) @ grad
     yd = y_mem * diag[None, :]
     return wg, yd @ grad, yd @ y_mem.T
-
-
-def _check_adaqn(s_mem, y_mem, diag, grad):
-    tensors = (s_mem, y_mem, diag, grad)
-    dev = s_mem.device
-    if any(t.device != dev for t in tensors):
-        raise ValueError("project_adaqn: all tensors must be on one device, "
-                         f"got {[str(t.device) for t in tensors]}")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("project_adaqn: all tensors must be float32, got "
-                        f"{[t.dtype for t in tensors]}")
-    if s_mem.dim() != 2 or y_mem.shape != s_mem.shape:
-        raise ValueError("project_adaqn: s_mem and y_mem must be [m, n] "
-                         f"alike, got {tuple(s_mem.shape)}, "
-                         f"{tuple(y_mem.shape)}")
-    m, n = s_mem.shape
-    if not 1 <= m <= _MAX_MEM or n < 1:
-        raise ValueError(f"project_adaqn: need 1 <= m <= {_MAX_MEM} and "
-                         f"n >= 1, got m={m}, n={n}")
-    if diag.shape != (n,) or grad.shape != (n,):
-        raise ValueError(f"project_adaqn: expected diag and grad [{n}], got "
-                         f"{tuple(diag.shape)}, {tuple(grad.shape)}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("project_adaqn: tensors must be contiguous")
 
 
 @functools.lru_cache(maxsize=None)
@@ -192,7 +323,7 @@ def project_adaqn(s_mem: torch.Tensor, y_mem: torch.Tensor,
     of one buffer on CUDA).
     """
     global PROJECT_ADAQN_LAUNCHES
-    _check_adaqn(s_mem, y_mem, diag, grad)
+    _check_projection("project_adaqn", s_mem, y_mem, diag=diag, grad=grad)
     if not _on_cuda("project_adaqn", s_mem):
         return project_adaqn_ref(s_mem, y_mem, diag, grad)
     m, n = s_mem.shape
@@ -287,6 +418,23 @@ def _library():
                        i32, ptr]
         fn.restype = i32
         fn = lib.adaqn_project_scratch
+        fn.argtypes = [i32, ctypes.c_longlong, i32]
+        fn.restype = ctypes.c_longlong
+        fn = lib.sqn_direction
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
+                       ctypes.c_longlong, ptr]
+        fn.restype = i32
+        fn = lib.sqn_direction_scratch
+        fn.argtypes = [i32, ctypes.c_longlong]
+        fn.restype = ctypes.c_longlong
+        fn = lib.sqn_direction_max_n
+        fn.argtypes = [i32]
+        fn.restype = ctypes.c_longlong
+        fn = lib.sqn_project
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, ctypes.c_longlong, i32,
+                       ptr]
+        fn.restype = i32
+        fn = lib.sqn_project_scratch
         fn.argtypes = [i32, ctypes.c_longlong, i32]
         fn.restype = ctypes.c_longlong
         lib.sqn_direction_max_mem.restype = i32

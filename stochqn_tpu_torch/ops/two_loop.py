@@ -1,4 +1,5 @@
-"""L-BFGS two-loop recursion from the commit-time cache (block layout).
+"""L-BFGS two-loop recursion (block layout): the commit-time cached form
+the optimizers run, and the uncached oracles it is audited against.
 
 Counterpart of :mod:`stochqn_tpu.ops.two_loop`.  Two branches of
 :func:`two_loop_cached` are ported:
@@ -9,15 +10,22 @@ Counterpart of :mod:`stochqn_tpu.ops.two_loop`.  Two branches of
 
       d = gamma*g + W^T ((c0 + gamma*cg) @ (W g)),   W = [s; y]  ([2m, n])
 
-  computed by the hand-written direction kernel whenever the tensors are
-  on CUDA;
+  computed by a hand-written direction kernel for a float32 gradient
+  (``direction``, one read of ``W``, where the pairs are float32 and fit
+  the card's shared memory; else ``direction_streamed``), and by the same
+  three products in plain torch for any other dtype;
 * adaQN's diagonal-H0 form, with the ``matvec`` or ``gram`` coupling in
   plain torch, or (``use_pallas=True``) with ``W g``, ``(Y*D) g`` and
   ``(Y*D) Y^T`` from the hand-written projection kernel.
 
+:func:`two_loop` is the compact two-loop straight from the pair rows, with
+no cache (``use_pallas=True``: ``W g`` and ``W W^T`` from the hand-written
+``project`` kernel), and :func:`two_loop_sequential` the operation-faithful
+loop of the reference C code.
+
 The kernels are in :mod:`stochqn_tpu_torch.ops.kernels.two_loop_kernel`;
 the selects around them are plain torch and stay on the device.  The
-scalar-H0 uncollapsed branch and the interleaved layout raise
+scalar-H0 uncollapsed cached branch and the interleaved layout raise
 ``NotImplementedError`` naming the ROADMAP slice that brings them.
 """
 from __future__ import annotations
@@ -26,7 +34,10 @@ from typing import Optional
 
 import torch
 
-from stochqn_tpu_torch.ops.kernels.two_loop_kernel import (direction_streamed,
+from stochqn_tpu_torch.ops.kernels.two_loop_kernel import (direction,
+                                                          direction_fits,
+                                                          direction_streamed,
+                                                          project,
                                                           project_adaqn)
 
 
@@ -34,12 +45,13 @@ def _mem_mm(a: torch.Tensor, b: torch.Tensor,
             acc_t: torch.dtype) -> torch.Tensor:
     """Streaming matmul against the pair memory, storage-aware.
 
-    float32 storage: a plain float32 matmul (full float32 unless the
+    Operands of one dtype: a plain matmul in it (full float32 unless the
     caller enabled TF32, which the JAX package's ``Precision.HIGHEST``
-    rules out).  bfloat16 storage: upcast inside, accumulate in ``acc_t``
-    — the JAX package's bfloat16 branch.
+    rules out).  bfloat16 storage, or operands of two dtypes (a float64
+    gradient against float32 pairs): both upcast to ``acc_t`` first, as
+    ``jnp.matmul(..., preferred_element_type=acc_t)`` promotes.
     """
-    if a.dtype == torch.bfloat16 or b.dtype == torch.bfloat16:
+    if a.dtype != b.dtype or a.dtype == torch.bfloat16:
         return torch.matmul(a.to(acc_t), b.to(acc_t))
     return torch.matmul(a, b).to(acc_t)
 
@@ -69,11 +81,16 @@ def two_loop_cached(grad: torch.Tensor, mem, *, h0: float = 0.0,
                     coupling: str = "matvec") -> torch.Tensor:
     """Approximate ``H^{-1} grad`` from the commit-time cache in ``mem``.
 
-    Scalar H0 (``diag=None``), ``collapsed=True``: the fused SQN engine's
-    per-step direction.  ``h0 > 0`` overrides the cached ``gamma``; with
-    no stored pairs the result is ``grad`` itself
-    (``src/stochqn.c:808-812``), which also masks the stale collapsed cache
-    after a flush.
+    Scalar H0 (``diag=None``), ``collapsed=True``: SQN's per-step
+    direction.  ``h0 > 0`` overrides the cached ``gamma``; with no stored
+    pairs the result is ``grad`` itself (``src/stochqn.c:808-812``), which
+    also masks the stale collapsed cache after a flush.  The route is
+    decided by dtype and shape before any launch: a float32 ``grad``
+    takes :func:`direction` (float32 pairs within the card's cap) or
+    :func:`direction_streamed` (bfloat16 pairs, or over the cap), which on
+    CUDA launch their kernels or raise and on the CPU run their plain
+    versions; any other dtype (float64, bfloat16 state) takes the same
+    three products in plain torch on either device.
 
     Diagonal H0 (``diag [n]``, adaQN; ``collapsed`` is ignored, as in the
     JAX package): project ``W g``, three m-sized solves, expand.  The
@@ -112,7 +129,17 @@ def two_loop_cached(grad: torch.Tensor, mem, *, h0: float = 0.0,
                  if h0 > 0 else mem.gamma)
         gamma = torch.where(has_pairs, gamma, torch.ones_like(gamma))
         c = mem.c0 + gamma * mem.cg
-        d = direction_streamed(mem.s, mem.y, g_acc, c, gamma)
+        if dtype == torch.float32 and acc_t == torch.float32 and (
+                mem.s.dtype in (torch.float32, torch.bfloat16)):
+            m, n = mem.s.shape
+            one_read = (mem.s.dtype == torch.float32
+                        and direction_fits(m, n, grad.device))
+            kernel = direction if one_read else direction_streamed
+            d = kernel(mem.s, mem.y, grad, c, gamma)
+        else:
+            w = torch.cat([mem.s, mem.y], dim=0)
+            u = c @ _mem_mm(w, grad, acc_t)
+            d = gamma * g_acc + _mem_mm(u, w, acc_t)
         return torch.where(has_pairs, d, g_acc).to(dtype)
 
     s_mem, y_mem = mem.s, mem.y
@@ -150,3 +177,146 @@ def two_loop_cached(grad: torch.Tensor, mem, *, h0: float = 0.0,
                          acc_t)
     d = u2 + st_coeff_s
     return torch.where(has_pairs, d, diag_acc * g_acc).to(dtype)
+
+
+def _scalar_i64(value, device) -> torch.Tensor:
+    return torch.as_tensor(value, dtype=torch.int64, device=device)
+
+
+def two_loop(grad: torch.Tensor, s_mem: torch.Tensor, y_mem: torch.Tensor,
+             head, count, *, h0: float = 0.0,
+             diag: Optional[torch.Tensor] = None,
+             gram: Optional[torch.Tensor] = None,
+             use_pallas: bool = False) -> torch.Tensor:
+    """Approximate ``H^{-1} grad`` from the stored pairs, with no cache:
+    the compact form (three products over ``W = [s_mem; y_mem]`` and two
+    m x m triangular solves) that :func:`two_loop_cached` is audited
+    against.
+
+    ``s_mem``/``y_mem`` ``[m, n]`` in storage order, ``head``/``count`` the
+    ring indices (tensors or Python ints).  ``h0 <= 0`` selects
+    ``gamma = (s.y)/(y.y)`` of the latest pair; ``diag [n]`` is adaQN's
+    elementwise H0 and overrides ``h0``.  ``gram`` is an optional cached
+    ``W W^T`` in storage order.  With no stored pairs the result is
+    ``grad`` (``diag * grad``), not ``h0 * grad``.
+
+    ``use_pallas=True`` with float32 ``grad`` and pairs (decided before any
+    launch; other dtypes take the plain route, as in the JAX package)
+    fuses the projection into one hand-written kernel pass: ``W g`` and
+    ``W W^T`` from :func:`project` when no Gram is given and no ``diag``;
+    ``W g``, ``(Y*D) g`` and ``(Y*D) Y^T`` from :func:`project_adaqn` with
+    ``diag``.  With a cached Gram and no ``diag`` there is nothing to
+    fuse.  On CUDA the kernels launch or raise; on the CPU they run their
+    plain versions.
+    """
+    m = s_mem.shape[0]
+    dtype = grad.dtype
+    dev = grad.device
+    acc_t = torch.promote_types(dtype, torch.float32)
+    head = _scalar_i64(head, dev)
+    count = _scalar_i64(count, dev)
+    perm = _chrono_perm(m, head, count)
+    valid = torch.arange(m, dtype=torch.int64, device=dev) < count
+    validf = valid.to(acc_t)
+
+    def w():
+        return torch.cat([s_mem, y_mem], dim=0)                # [2m, n]
+
+    ydg_st = ydy_st = None
+    kernels = (use_pallas and dtype == torch.float32
+               and s_mem.dtype == torch.float32)
+    if kernels and diag is not None:
+        wg, ydg_st, ydy_st = project_adaqn(s_mem, y_mem, diag, grad)
+    elif kernels and gram is None:
+        wg, gram = project(s_mem, y_mem, grad)
+    else:
+        wg = _mem_mm(w(), grad, acc_t)
+    if gram is None:
+        w_all = w()
+        gram = _mem_mm(w_all, w_all.T, acc_t)
+    wg, gram = wg.to(acc_t), gram.to(acc_t)
+
+    # chronologically ordered small quantities
+    sg = wg[:m][perm]
+    yg = wg[m:][perm]
+    sy = gram[:m, m:][perm][:, perm]    # sy[c, d] = s_c . y_d
+    yy = gram[m:, m:][perm][:, perm]
+    sy_diag = torch.diagonal(sy)
+    rho = validf / torch.where(valid, sy_diag, torch.ones_like(sy_diag))
+    eye = torch.eye(m, dtype=acc_t, device=dev)
+
+    # backward pass: unit-upper-triangular solve for alpha
+    upper = torch.triu(rho[:, None] * sy, diagonal=1)
+    alpha = torch.linalg.solve_triangular(
+        eye + upper, (rho * sg)[:, None], upper=True)[:, 0] * validf
+
+    has_pairs = count > 0
+    g_acc = grad.to(acc_t)
+    if diag is None:
+        if h0 > 0:
+            gamma = torch.full((), h0, dtype=acc_t, device=dev)
+        else:
+            # index_select, not [last]: a 0-d CUDA index is read on the host
+            last = torch.clamp(count - 1, min=0).reshape(1)
+            yy_last = torch.diagonal(yy).index_select(0, last)[0]
+            gamma = sy_diag.index_select(0, last)[0] / torch.where(
+                has_pairs, yy_last, torch.ones_like(yy_last))
+        gamma = torch.where(has_pairs, gamma, torch.ones_like(gamma))
+        h0_vec = gamma
+        y_r0 = gamma * (yg - yy @ alpha)
+    else:
+        h0_vec = diag.to(acc_t)
+        if ydg_st is None:
+            yd = y_mem.to(acc_t) * h0_vec[None, :]
+            ydg_st = _mem_mm(yd, grad, acc_t)
+            ydy_st = _mem_mm(yd, y_mem.T, acc_t)
+        y_r0 = (ydg_st.to(acc_t)[perm]
+                - ydy_st.to(acc_t)[perm][:, perm] @ alpha)
+
+    # forward pass: unit-lower-triangular solve for beta
+    lower = torch.tril(rho[:, None] * sy.T, diagonal=-1)
+    beta = torch.linalg.solve_triangular(
+        eye + lower, (rho * y_r0 + lower @ alpha)[:, None],
+        upper=False)[:, 0] * validf
+
+    # chronological coefficients back to storage order, then expand
+    st_alpha_y = _mem_mm(_to_storage_order(alpha, perm), y_mem, acc_t)
+    st_coeff_s = _mem_mm(_to_storage_order(alpha - beta, perm), s_mem, acc_t)
+    d = h0_vec * (g_acc - st_alpha_y) + st_coeff_s
+    empty = g_acc if diag is None else h0_vec * g_acc
+    return torch.where(has_pairs, d, empty).to(dtype)
+
+
+def two_loop_sequential(grad: torch.Tensor, s_mem: torch.Tensor,
+                        y_mem: torch.Tensor, head, count, *, h0: float = 0.0,
+                        diag: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Operation-faithful sequential two-loop (``src/stochqn.c:663-708``):
+    ``2 count`` dependent dot products and axpys, for cross-checks.  The
+    loop bounds are Python ints, so ``head`` and ``count`` are read on the
+    host."""
+    m = s_mem.shape[0]
+    head, count = int(head), int(count)
+    if count == 0:
+        return grad.clone() if diag is None else diag * grad
+    rows = [(head - count + c) % m for c in range(count)]
+    q = grad.clone()
+    alpha, rho = [0.0] * count, [0.0] * count
+    for c in reversed(range(count)):
+        s_c, y_c = s_mem[rows[c]], y_mem[rows[c]]
+        rho[c] = 1.0 / torch.dot(y_c, s_c)
+        alpha[c] = rho[c] * torch.dot(q, s_c)
+        q = q - alpha[c] * y_c
+    if diag is not None:
+        r = diag * q
+    elif h0 > 0:
+        r = h0 * q
+    else:
+        s_l, y_l = s_mem[rows[-1]], y_mem[rows[-1]]
+        denom = torch.dot(y_l, y_l)
+        r = torch.dot(s_l, y_l) / torch.where(
+            denom != 0, denom, torch.ones_like(denom)) * q
+    for c in range(count):
+        s_c, y_c = s_mem[rows[c]], y_mem[rows[c]]
+        beta = rho[c] * torch.dot(y_c, r)
+        r = r + (alpha[c] - beta) * s_c
+    return r

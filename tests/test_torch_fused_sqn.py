@@ -9,6 +9,8 @@ the info codes.
 Tolerance: 16 optimizer steps in float32, where each side sums in its own
 order; quasi-Newton steps amplify those ulp-level differences somewhat,
 and the cached inverses and c0/cg products more (rtol 1e-4, atol 2e-5).
+The float64 cases run the same program in float64 and hold the two to
+rtol 1e-9.
 """
 import dataclasses
 
@@ -115,6 +117,38 @@ def test_two_epochs_match_jax(hvp, cfg_kw):
     np.testing.assert_array_equal(tinfos.numpy(), np.asarray(jinfos))
     assert int(tst.mem.count) == int(jst.mem.count) > 0
     _assert_state_close(tst, jst)
+
+
+@pytest.mark.parametrize("hvp,cfg_kw", [
+    ("jvp", {}),
+    ("closed", {}),
+    ("jvp", {"use_grad_diff": True}),
+], ids=["jvp_hvp", "closed_form_hvp", "grad_diff"])
+def test_float64_trajectory_matches_jax(hvp, cfg_kw):
+    """The same run in float64, three epochs: the collapsed direction
+    takes its plain route (the direction kernels are float32), and the two
+    packages take the same steps to float64 rounding (rtol 1e-9)."""
+    X, Y, x0 = (a.astype(np.float64) for a in _data())
+    etas = [ETA] * 3
+    jtr, ttr = _trainers(hvp, cfg_kw)
+    jst, jinfos = jtr.jit_epochs()(
+        jtr.init(jnp.asarray(x0)), (jnp.asarray(X), jnp.asarray(Y)),
+        jnp.asarray(etas, jnp.float64), nepochs=len(etas))
+    tst, tinfos = ttr.epochs(
+        ttr.init(torch.from_numpy(x0)),
+        (torch.from_numpy(X), torch.from_numpy(Y)),
+        torch.tensor(etas, dtype=torch.float64), nepochs=len(etas))
+    np.testing.assert_array_equal(tinfos.numpy(), np.asarray(jinfos))
+    assert int(tst.mem.count) == int(jst.mem.count) > 0
+    got, want = sqn_state_to_numpy(tst), _jax_numpy(jst)
+    assert got["x"].dtype == want["x"].dtype == np.float64
+    for name in ("x", "x_sum", "x_avg_prev", "grad_prev"):
+        np.testing.assert_allclose(got[name], want[name], rtol=1e-9,
+                                   atol=1e-12, err_msg=name)
+    for name in ("s", "y", "gram", "gamma", "c0", "cg"):
+        np.testing.assert_allclose(got["mem"][name], want["mem"][name],
+                                   rtol=1e-8, atol=1e-11,
+                                   err_msg=f"mem.{name}")
 
 
 def test_carry_over_from_jax_state():

@@ -8,8 +8,16 @@ ROOT = Path(__file__).resolve().parents[1]
 CHECK = """
 import sys
 import stochqn_tpu_torch
-from stochqn_tpu_torch import convert, fused
+from stochqn_tpu_torch import convert, free, fused
+from stochqn_tpu_torch.core import adaqn, protocol, sqn
+from stochqn_tpu_torch.ops import two_loop
 from stochqn_tpu_torch.ops.kernels import two_loop_kernel
+for name in ("SQN_free", "adaQN_free", "AdvanceResult", "two_loop",
+             "two_loop_sequential", "direction", "project"):
+    assert hasattr(stochqn_tpu_torch, name), name
+assert callable(sqn.advance) and callable(adaqn.advance)
+free.SQN_free(device="cpu").run_optimizer([0.0, 1.0], 0.1)
+free.adaQN_free(device="cpu").run_optimizer([0.0, 1.0], 0.1)
 loaded = {m.split('.')[0] for m in sys.modules}
 bad = sorted({'jax', 'jaxlib', 'flax', 'stochqn_tpu'} & loaded)
 assert not bad, bad

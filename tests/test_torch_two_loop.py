@@ -192,3 +192,56 @@ def test_bad_coupling_and_interleaved_diag_raise():
     interleaved = types.SimpleNamespace(sy=torch.zeros(2 * M, N))
     with pytest.raises(ValueError, match="diagonal H0"):
         two_loop_cached(torch.zeros(N), interleaved, diag=torch.ones(N))
+
+
+def _jax_mem64(n_commits):
+    rng = np.random.default_rng(21)
+    mem = JaxMemory.create(M, N, jnp.float64)
+    for _ in range(n_commits):
+        s = rng.standard_normal(N)
+        y = s + 0.3 * rng.standard_normal(N)
+        mem, _ = jax_commit(mem.replace(s_pending=jnp.asarray(s)),
+                            jnp.asarray(y), 1e-4, 0.0, direction_cache=True)
+    return mem
+
+
+@pytest.mark.parametrize("n_commits", [1, 4, 6])   # 6 overfills the ring
+@pytest.mark.parametrize("h0", [0.0, 0.5])
+def test_collapsed_float64_matches_jax(n_commits, h0):
+    """A float64 memory takes the collapsed branch's plain route (no
+    direction kernel takes float64) and matches the JAX package under
+    ``jax_enable_x64`` to float64 rounding (rtol 1e-10)."""
+    jmem = _jax_mem64(n_commits)
+    g = np.random.default_rng(4).standard_normal(N)
+    want = np.asarray(jax_two_loop(jnp.asarray(g), jmem, h0=h0,
+                                   collapsed=True))
+    assert want.dtype == np.float64
+    got = two_loop_cached(torch.from_numpy(g), _to_torch(jmem), h0=h0,
+                          collapsed=True)
+    assert got.dtype == torch.float64 and got.shape == (N,)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("kwargs", [dict(collapsed=True),
+                                    dict(diag=True, coupling="matvec"),
+                                    dict(diag=True, coupling="gram")],
+                         ids=["collapsed", "diag_matvec", "diag_gram"])
+def test_float64_grad_against_float32_pairs_promotes_like_jax(kwargs):
+    """``_mem_mm`` promotes mixed float64 / float32 operands to the
+    accumulation dtype, as ``jnp.matmul(..., preferred_element_type=...)``
+    does: a float64 gradient against a float32 memory computes what the
+    JAX package computes (float32 cache, so float32 tolerance)."""
+    jmem = _jax_mem(5)
+    g = np.random.default_rng(4).standard_normal(N)
+    kwargs = dict(kwargs)
+    jkw, tkw = dict(kwargs), dict(kwargs)
+    if kwargs.get("diag"):
+        d = _diag(False).astype(np.float64)
+        jkw["diag"], tkw["diag"] = jnp.asarray(d), torch.from_numpy(d)
+    want = np.asarray(jax_two_loop(jnp.asarray(g), jmem, **jkw))
+    got = two_loop_cached(torch.from_numpy(g), _to_torch(jmem), **tkw)
+    assert got.dtype == torch.float64 and want.dtype == np.float64
+    np.testing.assert_allclose(got.numpy(), want, rtol=3e-5, atol=1e-5)
+    a = torch.from_numpy(g)
+    b = torch.ones(N, 2, dtype=torch.float32)
+    assert two_loop._mem_mm(a, b, torch.float64).dtype == torch.float64
