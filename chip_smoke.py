@@ -5,6 +5,9 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --kernels`` runs only the kernel phases 3, 6 and
+10, for work on a kernel; it prints no contract line.)
+
 Phases (each failure raises and exits non-zero; nothing is caught):
 
 1. The card (``nvidia-smi`` name and power limit), torch / CUDA versions and
@@ -15,10 +18,15 @@ Phases (each failure raises and exits non-zero; nothing is caught):
    card, on a real
    commit cache (12 commits into a ring of m = 10), at n = 900, 1,500 and
    292,083, for float32 and bfloat16 pair storage; then both timed at the
-   flagship shape with CUDA events.
+   flagship shape with CUDA events, and again at m = 20 (the shape phase 11
+   gives it, which no H100 parks whole) beside the bound at that shape.
+   Then kernel against plain and the same bits twice at m = 1, 10, 20, 32
+   and n = 2,001 ... 2,008 (every 16-byte phase of the rows), and at n that
+   the card's shared memory parks wholly, partly and hardly at all.
 4. The main path: ``FusedTrainer("SQN")`` at BibTeX shape (1,836 features,
    159 classes, batches of 50, 120 batches, m = 10, L = 20) on bench.py's
-   data, 2 epochs through ``epochs``.  Checks: no host sync inside,
+   data, 2 epochs through ``epochs``, from a numpy ``x0`` with no device
+   named.  Checks: the state is on the card, no host sync inside,
    finite ``x``, valid info codes, lower loss, one launch per step of the
    direction kernel the gate chose (the one-read kernel where the card's
    shared memory parks the pairs, else the streamed one), and the JAX
@@ -29,7 +37,11 @@ Phases (each failure raises and exits non-zero; nothing is caught):
 6. The adaQN projection kernel against its plain version on the card, on
    full committed rings (m = 4 and 10) at n = 700, 1,000, 1,500 and
    292,083, with a positive and a signed diagonal; at n = 292,083 both
-   against a float64 plain version; then both timed at the flagship shape.
+   against a float64 plain version; then both timed at the flagship shape,
+   and the kernel as its source fixes it beside a ring of 2 buffers and
+   beside a reduce launched in stream order.  Then kernel
+   against plain and the same bits twice at m = 1, 10, 23, 32 and
+   n = 2,001 ... 2,004, positive and signed diagonal.
 7. The adaQN main path: ``FusedTrainer("adaQN")`` at BibTeX shape on
    the same data (fisher_size 100, RMSProp 0.9, eta 0.1), 2 epochs
    through ``epochs``, with ``use_pallas=True`` (the projection kernel)
@@ -102,6 +114,7 @@ from stochqn_tpu_torch.ops.two_loop import (two_loop,  # noqa: E402
 N_FEATURES, N_CLASSES, BATCH_SIZE, NUM_BATCHES = 1836, 159, 50, 120
 UPD_FREQ, MEM_SIZE, REG, STEP = 20, 10, 1e-1, 1e-2
 N_FLAGSHIP = (N_FEATURES + 1) * N_CLASSES          # 292,083
+M20 = 20     # the mem_size whose pairs no H100 parks whole at n = 292,083
 
 # The JAX package (stochqn_tpu) on the CPU, on exactly this data:
 # FusedTrainer("SQN", SQNConfig.create(mem_size=10, bfgs_upd_freq=20))
@@ -411,7 +424,99 @@ def kernel_phase(dev):
                     f"n={n} {name}",
                     lambda: tlk.direction_streamed(*args),
                     lambda: tlk.direction_streamed_ref(*args))
-    return worst, timing
+    worst20, timing["m20"] = streamed_m20(dev, gen)
+    return max(worst, worst20, streamed_shapes(dev, gen)), timing
+
+
+def random_direction_args(m, n, storage, dev, gen):
+    """Pairs, gradient, ``c`` (scaled by 1 / n, as in the tests, so that one
+    tolerance serves every n) and gamma, made on the card."""
+    s = torch.randn(m, n, device=dev, generator=gen)
+    y = s + 0.3 * torch.randn(m, n, device=dev, generator=gen)
+    return (s.to(storage), y.to(storage),
+            torch.randn(n, device=dev, generator=gen),
+            torch.randn(2 * m, 2 * m, device=dev, generator=gen) / n,
+            torch.full((), 0.7, device=dev))
+
+
+def streamed_shapes(dev, gen):
+    """The streamed kernel against its plain version, and the same bits
+    twice, over what it treats apart: n with every remainder mod 4 (and mod
+    8: a 16-byte vector holds 8 bfloat16 values) at m = 1, 10, 20 and 32,
+    since every row of the pairs has its own 16-byte phase; and n that this
+    card's shared memory parks wholly, in part and hardly at all."""
+    worst = 0.0
+    shapes = [(m, n, None) for m in (1, 10, M20, 32) for n in range(2001, 2009)]
+    shapes += [(MEM_SIZE, N_FLAGSHIP, "wholly"), (M20, N_FLAGSHIP, "partly"),
+               (32, N_FLAGSHIP, "partly"), (32, 4_000_000, "hardly")]
+    for m, n, parks in shapes:
+        for storage in (torch.float32, torch.bfloat16):
+            name = str(storage)[6:]
+            args = random_direction_args(m, n, storage, dev, gen)
+            got = tlk.direction_streamed(*args)
+            again = tlk.direction_streamed(*args)
+            want = tlk.direction_streamed_ref(*args)
+            torch.cuda.synchronize()
+            max_abs = float((got - want).abs().max())
+            worst = max(worst, max_abs)
+            ok = bool(torch.equal(got, again)) and bool(torch.allclose(
+                got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL))
+            what = (f"m={m} n={n} {name}: the same bits twice, max_abs_err="
+                    f"{max_abs:.3e} within rtol={KERNEL_RTOL} "
+                    f"atol={KERNEL_ATOL}")
+            if parks is None:
+                if not ok:
+                    check(False, what)
+                continue
+            parked = tlk.direction_streamed_parked(m, n, storage, dev)
+            check(ok, f"{what}; {parked} of {n} columns park "
+                  f"({100 * parked / n:.1f}%)")
+            if storage == torch.float32 or parks == "hardly":
+                share = {"wholly": parked == n,
+                         "partly": 0.25 * n < parked < n,
+                         "hardly": 0 < parked < 0.1 * n}[parks]
+                check(share, f"m={m} n={n} {name} parks {parks}")
+    check(True, "direction_streamed agrees with its plain version and gives "
+          "the same bits twice at m in {1, 10, 20, 32}, n = 2001 ... 2008, "
+          "both storages")
+    return worst
+
+
+def streamed_m20(dev, gen):
+    """The streamed kernel at the shape its driven path gives it (free-mode
+    SQN with ``mem_size=20``, phase 11): n = 292,083, m = 20, which no H100
+    parks whole.  Kernel against plain version, then both timed, per
+    storage, beside the bound at this shape."""
+    worst, out = 0.0, {}
+    for storage in (torch.float32, torch.bfloat16):
+        name = str(storage)[6:]
+        mem = committed_memory(N_FLAGSHIP, storage, dev, gen,
+                               commits=M20 + 2, m=M20)
+        g = torch.randn(N_FLAGSHIP, device=dev, generator=gen)
+        args = (mem.s, mem.y, g, mem.c0 + mem.gamma * mem.cg, mem.gamma)
+        got = tlk.direction_streamed(*args)
+        again = tlk.direction_streamed(*args)
+        want = tlk.direction_streamed_ref(*args)
+        torch.cuda.synchronize()
+        max_abs = float((got - want).abs().max())
+        worst = max(worst, max_abs)
+        check(bool(torch.equal(got, again)),
+              f"m={M20} n={N_FLAGSHIP} {name}: the same bits twice")
+        check(bool(torch.allclose(got, want, rtol=KERNEL_RTOL,
+                                  atol=KERNEL_ATOL)),
+              f"m={M20} n={N_FLAGSHIP} {name}: max_abs_err={max_abs:.3e} "
+              f"within rtol={KERNEL_RTOL} atol={KERNEL_ATOL}")
+        t = time_kernel(f"m={M20} n={N_FLAGSHIP} {name}",
+                        lambda: tlk.direction_streamed(*args),
+                        lambda: tlk.direction_streamed_ref(*args))
+        t.update(direction_bound(M20, N_FLAGSHIP, mem.s.element_size()))
+        print(f"  bound at m={M20} n={N_FLAGSHIP} {name}: "
+              f"{t['bound_ms']:.5f} ms by {t['bound_by']}; kernel at "
+              f"{100 * t['bound_ms'] / t['ms']:.1f}% of it warm, "
+              f"{100 * t['bound_ms'] / t['cold_ms']:.1f}% with L2 flushed",
+              flush=True)
+        out[name] = t
+    return worst, out
 
 
 # ---------------------------------------------------------------------------
@@ -441,7 +546,12 @@ def main_path_phase(dev):
 
     trainer = FusedTrainer("SQN", SQNConfig.create(
         mem_size=MEM_SIZE, bfgs_upd_freq=UPD_FREQ), grad_fn)
-    state = trainer.init(x0)
+    # x0 as a user has it, a numpy array and no device named: on the card
+    state = trainer.init(x0.cpu().numpy())
+    check(state.x.device.type == "cuda" and state.mem.s.device.type == "cuda"
+          and bool(torch.equal(state.x, x0)),
+          "FusedTrainer.init(numpy x0) with no device puts the state on the "
+          "card")
     loss0 = full_loss(state.x)
     check(abs(loss0 - JAX_LOSS_X0) <= 1e-5 * JAX_LOSS_X0,
           f"loss at x0 {loss0:.4f} is the JAX package's {JAX_LOSS_X0} "
@@ -619,7 +729,122 @@ def adaqn_kernel_phase(dev):
                           f"max_abs_err={max_abs:.3e}")
                 if m == MEM_SIZE and not signed:
                     timing = time_projection(dev, args)
-    return worst, worst_share, timing
+                    timing["variants"] = projection_variants(dev, args)
+    return max(worst, projection_shapes(dev, gen)), worst_share, timing
+
+
+def projection_shapes(dev, gen):
+    """The projection kernel against its plain version, and the same bits
+    twice, at n with every remainder mod 4 (every row of the pairs then has
+    its own 16-byte phase) and m = 1, 10, 23 and 32 (one and two units per
+    warp, one and several unit groups), with a positive and a signed
+    diagonal."""
+    worst = 0.0
+    for m in (1, MEM_SIZE, 23, 32):
+        for n in range(2001, 2005):
+            s = torch.randn(m, n, device=dev, generator=gen)
+            y = s + 0.3 * torch.randn(m, n, device=dev, generator=gen)
+            g = torch.randn(n, device=dev, generator=gen)
+            for signed in (False, True):
+                diag = (torch.randn(n, device=dev, generator=gen) if signed
+                        else 0.1 + 1.9 * torch.rand(n, device=dev,
+                                                    generator=gen))
+                got = tlk.project_adaqn(s, y, diag, g)
+                again = tlk.project_adaqn(s, y, diag, g)
+                want = tlk.project_adaqn_ref(s, y, diag, g)
+                torch.cuda.synchronize()
+                max_abs = max(float((a - b).abs().max())
+                              for a, b in zip(got, want))
+                worst = max(worst, max_abs)
+                ok = (all(torch.equal(a, b) for a, b in zip(got, again))
+                      and bool(torch.equal(got[2], got[2].T))
+                      and all(torch.allclose(a, b, rtol=ADAQN_RTOL,
+                                             atol=ADAQN_ATOL)
+                              for a, b in zip(got, want)))
+                if not ok:
+                    check(False, f"m={m} n={n} "
+                          f"{'signed' if signed else 'positive'}: the same "
+                          f"bits twice, ydy symmetric, max_abs_err="
+                          f"{max_abs:.3e} within rtol={ADAQN_RTOL} "
+                          f"atol={ADAQN_ATOL}")
+    check(True, "project_adaqn agrees with its plain version and gives the "
+          "same bits twice at m in {1, 10, 23, 32}, n = 2001 ... 2004, "
+          f"positive and signed d (worst max_abs_err={worst:.3e})")
+    return worst
+
+
+# project_adaqn.cu's ring depth and the way its reduce is launched, by the
+# macros its source reads; the first is what the source fixes.
+PROJECTION_VARIANTS = {
+    "ring of 3": (),
+    "ring of 2": ("-DADAQN_STAGES=2",),
+    "reduce in stream order": ("-DADAQN_DEPENDENT_LAUNCH=0",),
+}
+
+
+def projection_variants(dev, args):
+    """The projection kernel's variants timed side by side: its source
+    built again with each variant's macro, each a library of its own,
+    launched through the same C interface and timed in turns.
+    Returns ``{variant: [warm ms, L2-flushed ms]}``."""
+    import ctypes
+    import tempfile
+    s_mem, y_mem, diag, g = args
+    m, n = s_mem.shape
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    vals, mags = projection_f64(*args)
+    source = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "stochqn_tpu_torch", "csrc", "project_adaqn.cu")
+    os.makedirs(tlk._BUILD, exist_ok=True)
+    out = {}
+    with tempfile.TemporaryDirectory(dir=tlk._BUILD) as tmp:
+        libs = {name: os.path.join(tmp, f"variant{i}.so")
+                for i, name in enumerate(PROJECTION_VARIANTS)}
+        tlk._run([[tlk._nvcc(), *tlk._COMPILE_FLAGS[:-2], "-shared", *flags,
+                   "-o", libs[name], source]
+                  for name, flags in PROJECTION_VARIANTS.items()])
+        calls = {}
+        for name, path in libs.items():
+            lib = ctypes.CDLL(path)
+            ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.adaqn_project.argtypes = [ptr] * 6 + [i32, i64, i32, ptr]
+            lib.adaqn_project.restype = i32
+            lib.adaqn_project_scratch.argtypes = [i32, i64, i32]
+            lib.adaqn_project_scratch.restype = i64
+            res = torch.empty(3 * m + m * m, device=dev)
+            scratch = torch.empty(lib.adaqn_project_scratch(m, n, sms),
+                                  device=dev)
+
+            def call(lib=lib, res=res, scratch=scratch):
+                err = lib.adaqn_project(
+                    s_mem.data_ptr(), y_mem.data_ptr(), diag.data_ptr(),
+                    g.data_ptr(), res.data_ptr(), scratch.data_ptr(), m, n,
+                    sms, stream)
+                if err != 0:
+                    raise RuntimeError(f"variant launch failed: {err}")
+            call()
+            torch.cuda.synchronize()
+            parts = (res[:2 * m], res[2 * m:3 * m], res[3 * m:].view(m, m))
+            ratio = max(float(((r.double() - v).abs()
+                               / (ADAQN_BOUND_REL * mag)).max())
+                        for r, v, mag in zip(parts, vals, mags))
+            check(ratio <= 1.0, f"variant '{name}' vs float64 within "
+                  f"{ADAQN_BOUND_REL} x sum|terms| (worst entry at "
+                  f"{ratio:.3f} of it)")
+            calls[name] = call
+        names = list(calls)
+        times = {name: [[], []] for name in names}
+        for name in names + names[::-1]:
+            times[name][0].append(device_ms(calls[name], 50))
+            times[name][1].append(device_ms(calls[name], 30, flush))
+        for name in names:
+            out[name] = [statistics.mean(v) for v in times[name]]
+            print(f"  variant {name}: {out[name][0]:.4f} ms warm, "
+                  f"{out[name][1]:.4f} ms with L2 flushed (in turns, "
+                  f"n={n} m={m})", flush=True)
+    return out
 
 
 def time_projection(dev, args):
@@ -1252,7 +1477,7 @@ def free_sqn_phase(dev):
              else f"{busy / 10:.4f} ms (profiler, 10 calls)"), flush=True)
 
     # mem_size = 20: 47.9 MB of pairs and gradient, over any H100's cap
-    m20 = 20
+    m20 = M20
     check(not tlk.direction_fits(m20, N_FLAGSHIP, dev),
           f"m={m20}, n={N_FLAGSHIP} is over the one-read kernel's cap "
           f"({tlk.direction_max_n(m20, dev)})")
@@ -1365,6 +1590,17 @@ def main():
     if built:
         print("  " + built[1].strip().replace("\n", "\n  "), flush=True)
 
+    if "--kernels" in sys.argv[1:]:
+        # the kernel phases alone (3, 6, 10): checks and times, no path
+        _, timing = kernel_phase(dev)
+        _, _, adaqn_timing = adaqn_kernel_phase(dev)
+        _, direction_timing = direction_kernel_phase(dev)
+        print(json.dumps({"direction_streamed": timing,
+                          "project_adaqn": adaqn_timing,
+                          "direction": direction_timing}))
+        print(card)
+        return 0
+
     max_abs, timing = kernel_phase(dev)
     sqn_launches, ips, streamed_ips = main_path_phase(dev)
     parity_phase(dev)
@@ -1405,7 +1641,7 @@ def main():
     print(json.dumps({"kernels": [
         entry("direction_streamed", 309, max_abs, f32,
               direction_bound(MEM_SIZE, N_FLAGSHIP), bf16=timing["bfloat16"],
-              iters_per_s=streamed_ips),
+              m20=timing["m20"], iters_per_s=streamed_ips),
         entry("project_adaqn", 390, adaqn_max_abs, adaqn_timing,
               project_adaqn_bound(MEM_SIZE, N_FLAGSHIP),
               worst_err_share_of_f64_bound=adaqn_share,

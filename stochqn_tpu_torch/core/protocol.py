@@ -71,6 +71,19 @@ def scalar_like(value, x: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(value, dtype=x.dtype, device=x.device)
 
 
+def resolve_device(device, what: str = "free mode") -> torch.device:
+    """``device`` as a :class:`torch.device`; ``None`` means the card, and
+    raises where there is none (``what`` names the caller in the message).
+    ``device="cpu"`` is how a caller asks for the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{what} runs on an NVIDIA GPU by default and none is "
+            "available; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
 def no_bad(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.bool, device=x.device)
 

@@ -1,4 +1,4 @@
-// Collapsed SQN two-loop direction on Hopper:
+// Collapsed SQN two-loop direction on Hopper, for pairs of any size:
 //
 //     d = gamma * g + W^T (C (W g)),   W = [S; Y]  ([2m, n]),  C [2m, 2m]
 //
@@ -8,51 +8,106 @@
 // g, C, gamma and d are float32; every sum is accumulated in float32.
 //
 // What bounds it on the card: bytes.  The math is 4 * 2m * n FLOPs against
-// 2 * 2m * n * sizeof(storage) bytes of W, about 0.5 FLOP per byte, far
-// below the H100's ~20 FLOP/byte float32 balance point.  At the flagship
-// shape (m = 10, n = 292,083, float32) W is 23.4 MB.  Two passes over it
-// move 46.7 MB per step if the second pass misses L2, 23.4 MB if it hits
-// (W fits the 50 MB L2).
+// 2m * n * sizeof(storage) bytes of W, about 0.5 FLOP per byte, far below
+// the H100's ~20 FLOP/byte float32 balance point.  W g has to be complete
+// before any d[j] can be written, so W is needed twice; what the card can
+// keep between the two uses is the shared memory of its SMs (30 MB on an
+// H100) and, less surely, its L2.  At n = 292,083 the float32 pairs are
+// 23.4 MB at m = 10 and 46.7 MB at m = 20.
 //
 // What the design does about it.  The TPU kernel walks its grid in order and
-// carries W g in VMEM scratch from one grid step to the next; on Hopper
-// blocks run in parallel and in no order, so the work is three launches:
+// carries W g in VMEM from one grid step to the next; on Hopper blocks run in
+// parallel and in no order, and the store that outlives a phase is the
+// shared memory of blocks that stay resident.  One cooperative launch of at
+// most one block per SM; block b owns `cols` consecutive columns:
 //
-//   1. project_partials: a grid that strides over n.  Each thread keeps
-//      its 2m running dot products W[r, j] * g[j] in registers (g is read
-//      once per column, W once per element, coalesced), and each block
-//      reduces them to partials[2m, block] (a row's partials side by side,
-//      so that pass 2 reads them from neighbouring addresses).  No atomics, so the result is
-//      the same from run to run.
-//   2. mix: one block sums the partials in a fixed order (one warp per row
-//      of W) into wg = W g and forms u = C wg.
-//   3. expand: one thread per column, d[j] = gamma * g[j] + sum_r u[r] W[r, j],
-//      with u in shared memory.  Launched right after pass 1, so W is
-//      likely still in L2.
+//   phase 0: where the block's columns of S, Y and g fit its shared memory,
+//     it copies them there with cp.async, 16 bytes a copy and all of them
+//     in flight at once, in the storage type (bfloat16 parks twice the
+//     columns).  Where they do not, they pass in a few large chunks of one
+//     size through a ring of kStages buffers, and the last kStages chunks
+//     stay.  One warp per row sums W[r, :] . g over what has arrived, each
+//     lane in a fixed order, and writes partials[r, b].
+//   grid barrier (cooperative_groups::this_grid().sync()).
+//   phase 1: every block sums the partials over the blocks in the same fixed
+//     order (one warp per row), forms u = C (W g) itself, and writes its
+//     columns of d: the columns of the chunks that are gone straight from
+//     device memory, from the last one backwards (what L2 most likely still
+//     holds), a thread with 16 loads in flight; then the parked columns or
+//     the chunks the ring still holds from shared memory, a thread taking
+//     columns of different chunks at once.
 //
-// The ragged edge is masked (j < n); W is never padded or copied.  gamma is
-// read through a device pointer, so the caller never syncs for it.  Reading
-// W from HBM once (W parked in shared memory of a persistent grid, or in
-// L2), TMA and wide loads are later work.
+// There is no cap on n: what does not fit the shared memory is re-read, and
+// a card with little shared memory parks little.  The blocks, the columns
+// per block, the parked columns, the ring and the scratch are worked out
+// here from the device's properties.
 //
-// Plain C interface, loaded with ctypes.  Every launch is on the caller's
-// stream; the function returns cudaGetLastError() after the launches.
+// Rows are not 16-byte aligned: row r starts r * n elements after row 0, so
+// with an odd n every row has its own phase, and so has g.  A copy of a row
+// segment therefore starts at the 16-byte boundary below the segment and
+// ends at the one above it, and the row's copy in shared memory keeps the
+// phase it has in device memory: every copy is a whole aligned 16-byte
+// vector.  (The few elements it takes along belong to the neighbouring
+// columns or rows and are never read; only where such a vector would reach
+// outside the tensor, the segment's own elements are copied one by one.)
+// The sums and phase 1 read single elements at consecutive addresses.
+// Streaming the columns through registers instead (16-byte loads, the sums
+// kept per thread) was measured and was slower: a thread cannot keep enough
+// loads in flight.
+//
+// No atomics and a fixed order of every sum, so every run gives the same
+// bits.  W is never padded or copied; gamma is read through a device
+// pointer, so the caller never syncs for it.
+//
+// Plain C interface, loaded with ctypes.  The launch is on the caller's
+// stream, on the current device; the function returns the launch's error
+// code (a cooperative launch whose grid does not fit is refused, not
+// queued).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMixThreads = 1024;
-constexpr int kMaxMem = 32;  // largest m (pairs) the kernels take
+constexpr int kMaxMem = 32;      // largest m (pairs) the kernel takes
+constexpr int kMaxRows = 2 * kMaxMem;
+constexpr int kRowsPerWarp = kMaxRows / kWarps;  // rows a warp sums
+constexpr int kStages = 3;       // buffers of the ring
+constexpr int kExpand = 4;       // columns a thread writes per step of phase 1
+constexpr int kMinCols = 1024;   // columns per block, at least, where n allows
+constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// Shared memory ahead of the rows, in floats: wg, the phase of every row of
+// W and of g, for the parked buffer and a ring buffer a (u[r], start of row
+// r) pair per row of W (past the last row: (0, start of row 0), so that a
+// loop over the rows may run on to a multiple of 4).
+constexpr int kOffWg = 0;
+constexpr int kOffMis = kOffWg + kMaxRows;
+constexpr int kOffParkRow = kOffMis + kMaxRows + 16;
+constexpr int kOffRingRow = kOffParkRow + 2 * kMaxRows;
+constexpr int kHeadFloats = kOffRingRow + 2 * kMaxRows;
+constexpr int kHeadBytes = kHeadFloats * static_cast<int>(sizeof(float));
+static_assert(kHeadBytes % 16 == 0, "the rows start 16-byte aligned");
+
+// A row segment of `width` columns (a multiple of the 16-byte vector where
+// another segment follows it) takes ld elements: the segment, the phase
+// ahead of it, rounded up to whole vectors.
+__host__ __device__ constexpr int row_ld(int width, int vec) {
+  return (width + vec - 1) / vec * vec + vec;
+}
+// Bytes of a buffer of `width` columns of all 2m rows and of g.
+__host__ __device__ constexpr long long buffer_bytes(int m, int width,
+                                                     int esize) {
+  return static_cast<long long>(2 * m) * row_ld(width, 16 / esize) * esize +
+         static_cast<long long>(row_ld(width, 4)) * 4;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -63,128 +118,472 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Pass 1: partials[r, b] = sum over the columns j of block b of W[r, j] g[j].
-// MAXM bounds m at compile time so the accumulators stay in registers.
-template <typename T, int MAXM>
-__global__ void __launch_bounds__(kThreads)
-    project_partials(const T* __restrict__ s, const T* __restrict__ y,
-                     const float* __restrict__ g, int m, int64_t n,
-                     float* __restrict__ partials) {
-  float acc_s[MAXM];
-  float acc_y[MAXM];
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// One warp copies `width` elements from src to dst + mis, where mis is the
+// number of elements src lies past a 16-byte boundary and dst is 16-byte
+// aligned: whole aligned vectors with cp.async, from the boundary below src
+// to the one above src + width.  [lo, hi) is the tensor src belongs to; a
+// vector that would reach outside it is replaced by plain copies of the
+// segment's own elements.
+template <typename E>
+__device__ __forceinline__ void copy_segment(E* dst, const E* src, int mis,
+                                             int width, const E* lo,
+                                             const E* hi, int lane) {
+  constexpr int V = 16 / static_cast<int>(sizeof(E));
+  const E* base = src - mis;
+  const int vectors = (mis + width + V - 1) / V;
+  for (int v = lane; v < vectors; v += 32) {
+    const E* p = base + v * V;
+    E* q = dst + v * V;
+    if (p >= lo && p + V <= hi) {
+      __pipeline_memcpy_async(q, p, 16);
+    } else {
 #pragma unroll
-  for (int r = 0; r < MAXM; ++r) {
-    acc_s[r] = 0.f;
-    acc_y[r] = 0.f;
-  }
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       j < n; j += stride) {
-    const float gj = g[j];
-#pragma unroll
-    for (int r = 0; r < MAXM; ++r) {
-      if (r < m) {
-        acc_s[r] = fmaf(to_f32(s[r * n + j]), gj, acc_s[r]);
-        acc_y[r] = fmaf(to_f32(y[r * n + j]), gj, acc_y[r]);
+      for (int i = 0; i < V; ++i) {
+        const int e = v * V + i;
+        if (e >= mis && e < mis + width) q[i] = p[i];
       }
     }
   }
+}
 
-  __shared__ float red[kWarps][2 * MAXM];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+// partials is written before the grid barrier and read after it by other
+// blocks: no __restrict__, and the reads bypass L1.
+//
+// T is the storage type.  Block b owns the columns b * cols ...; the first
+// `park` of them (a multiple of the 16-byte vector) stay in shared memory,
+// the others pass through a ring of kStages buffers of `chunk` columns.
+//
+// A cp.async is accepted no faster than memory delivers, and a warp has only
+// so many in flight: every warp makes its share of a chunk's copies (a few
+// warps alone do not fill the memory pipe), and is held for about as long
+// as the chunk takes to arrive, so a step of the ring costs the chunk's
+// transfer plus its sums, which are kept short.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    direction_parked(const T* __restrict__ s, const T* __restrict__ y,
+                     const float* __restrict__ g,
+                     const float* __restrict__ cmat,
+                     const float* __restrict__ gamma, float* __restrict__ d,
+                     float* partials, int m, int64_t n, int64_t cols, int park,
+                     int chunk) {
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+  constexpr int ESIZE = static_cast<int>(sizeof(T));
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* head = reinterpret_cast<float*>(smem);
+  float* wg = head + kOffWg;
+  int* mis = reinterpret_cast<int*>(head + kOffMis);  // [2m + 1], g last
+  // where row r starts in the parked buffer and in a ring buffer, each with
+  // u[r] beside it once u is known
+  float2* park_row = reinterpret_cast<float2*>(head + kOffParkRow);  // [2m]
+  float2* ring_row = reinterpret_cast<float2*>(head + kOffRingRow);  // [2m]
+
+  const int two_m = 2 * m;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int64_t j0 = static_cast<int64_t>(blockIdx.x) * cols;
+  const int64_t left = n - j0;
+  const int64_t mine = left <= 0 ? 0 : left < cols ? left : cols;
+  const int P = mine < park ? static_cast<int>(mine) : park;
+  const int64_t rest = mine - P;
+  const int chunks = chunk > 0 ? static_cast<int>((rest + chunk - 1) / chunk)
+                               : 0;
+  const float* gb = g + j0;
+
+  // What phase 1 needs and the barrier does not change, fetched ahead of it:
+  // gamma, and for the rows r = warp + i * kWarps of u = C wg the entries
+  // C[r, lane] and C[r, lane + 32].
+  const float gam = *gamma;
+  float c_lo[kRowsPerWarp];
+  float c_hi[kRowsPerWarp];
 #pragma unroll
-  for (int r = 0; r < MAXM; ++r) {
-    if (r < m) {  // m is uniform over the block: no divergent shuffle
-      const float a = warp_sum(acc_s[r]);
-      const float b = warp_sum(acc_y[r]);
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int r = warp + i * kWarps;
+    c_lo[i] = r < two_m && lane < two_m ? cmat[r * two_m + lane] : 0.f;
+    c_hi[i] = r < two_m && lane + 32 < two_m ? cmat[r * two_m + lane + 32]
+                                             : 0.f;
+  }
+
+  // The buffers: the parked rows, then the ring.  A buffer holds the 2m rows
+  // of W in the storage type, ld elements each, then g.
+  const int ld_p = row_ld(park, VEC);
+  const int ld_c = row_ld(chunk, VEC);
+  unsigned char* park_buf = smem + kHeadBytes;
+  unsigned char* ring = park_buf + buffer_bytes(m, park, ESIZE);
+  const long long ring_stride = buffer_bytes(m, chunk, ESIZE);
+  auto rows_of = [](unsigned char* buf) { return reinterpret_cast<T*>(buf); };
+  auto g_of = [&](unsigned char* buf, int ld) {
+    return reinterpret_cast<float*>(buf + static_cast<size_t>(two_m) * ld *
+                                              ESIZE);
+  };
+
+  // The phase of a row: the elements its first column lies past a 16-byte
+  // boundary.  Every segment starts a multiple of the vector after the
+  // block's first column, so a row has one phase throughout.
+  auto row_of = [&](int r) {
+    return (r < m ? s + r * n : y + (r - m) * n) + j0;
+  };
+  for (int r = tid; r <= kMaxRows; r += kThreads) {
+    if (r < two_m) {
+      mis[r] = static_cast<int>(
+          (reinterpret_cast<uintptr_t>(row_of(r)) / ESIZE) & (VEC - 1));
+      park_row[r] = make_float2(0.f, __int_as_float(r * ld_p + mis[r]));
+      ring_row[r] = make_float2(0.f, __int_as_float(r * ld_c + mis[r]));
+    } else if (r < kMaxRows) {
+      const int mis0 = static_cast<int>(
+          (reinterpret_cast<uintptr_t>(row_of(0)) / ESIZE) & (VEC - 1));
+      park_row[r] = make_float2(0.f, __int_as_float(mis0));
+      ring_row[r] = make_float2(0.f, __int_as_float(mis0));
+    }
+    if (r == two_m) {
+      mis[r] = static_cast<int>((reinterpret_cast<uintptr_t>(gb) >> 2) & 3);
+    }
+  }
+  __syncthreads();
+
+  // Copies the columns [c0, c0 + width) of every row and of g into a buffer
+  // whose rows are ld elements long: one warp per row.
+  auto copy_columns = [&](unsigned char* buf, int ld, int64_t c0, int width) {
+    for (int r = warp; r <= two_m; r += kWarps) {
+      if (r < two_m) {
+        const T* lo = r < m ? s : y;
+        copy_segment<T>(rows_of(buf) + r * ld, row_of(r) + c0, mis[r], width,
+                        lo, lo + m * n, lane);
+      } else {
+        copy_segment<float>(g_of(buf, ld), gb + c0, mis[two_m], width, g,
+                            g + n, lane);
+      }
+    }
+  };
+  auto chunk_width = [&](int k) {
+    const int64_t w = rest - static_cast<int64_t>(k) * chunk;
+    return w < chunk ? static_cast<int>(w) : chunk;
+  };
+  auto copy_chunk = [&](int slot, int k) {  // chunk k into buffer `slot`
+    copy_columns(ring + slot * ring_stride, ld_c,
+                 P + static_cast<int64_t>(k) * chunk, chunk_width(k));
+  };
+
+  // A warp sums the rows warp + i * kWarps of W against g, a row at a time;
+  // a lane keeps 4 sums per row going, over the columns 32 apart, and adds
+  // them in a fixed order.
+  const int my_rows = (two_m - warp + kWarps - 1) / kWarps;
+  float acc[kRowsPerWarp];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) acc[i] = 0.f;
+  auto sum_columns = [&](unsigned char* buf, int ld, const float2* row_at,
+                         int width) {
+    const float* gs = g_of(buf, ld) + mis[two_m] + lane;
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      if (i < my_rows) {  // the same for every lane of the warp
+        const T* row = rows_of(buf) +
+                       __float_as_int(row_at[warp + i * kWarps].y) + lane;
+        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+        int c = 0;
+        for (; c + lane + 96 < width; c += 128) {
+          a0 = fmaf(to_f32(row[c]), gs[c], a0);
+          a1 = fmaf(to_f32(row[c + 32]), gs[c + 32], a1);
+          a2 = fmaf(to_f32(row[c + 64]), gs[c + 64], a2);
+          a3 = fmaf(to_f32(row[c + 96]), gs[c + 96], a3);
+        }
+        for (; c + lane < width; c += 32) {
+          a0 = fmaf(to_f32(row[c]), gs[c], a0);
+        }
+        acc[i] += (a0 + a1) + (a2 + a3);
+      }
+    }
+  };
+
+  // Phase 0: the parked columns are one group of copies, every chunk one
+  // more; groups land in the order they were committed.
+  if (P > 0) copy_columns(park_buf, ld_p, 0, P);
+  __pipeline_commit();
+  for (int k = 0; k < kStages - 1; ++k) {
+    if (k < chunks) copy_chunk(k, k);
+    __pipeline_commit();
+  }
+  __pipeline_wait_prior(kStages - 1);  // the parked columns are here
+  __syncthreads();
+  if (P > 0) sum_columns(park_buf, ld_p, park_row, P);
+  for (int k = 0; k < chunks; ++k) {
+    __pipeline_wait_prior(kStages - 2);  // this thread's copies of chunk k
+    __syncthreads();  // everyone's; and chunk k - 1 is summed by everyone
+    const int nx = k + kStages - 1;
+    if (nx < chunks) copy_chunk(nx % kStages, nx);
+    __pipeline_commit();
+    sum_columns(ring + (k % kStages) * ring_stride, ld_c, ring_row,
+                chunk_width(k));
+  }
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    if (i < my_rows) {  // the same for every lane of the warp
+      const float t = warp_sum(acc[i]);
       if (lane == 0) {
-        red[warp][r] = a;
-        red[warp][m + r] = b;
+        partials[static_cast<int64_t>(warp + i * kWarps) * gridDim.x +
+                 blockIdx.x] = t;
+      }
+    }
+  }
+
+  cg::this_grid().sync();
+
+  // Phase 1: wg in a fixed order (a warp's rows loaded side by side, each
+  // lane over the blocks 32 apart), u = C wg by one warp per row, then d.
+  {
+    float t[kRowsPerWarp];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) t[i] = 0.f;
+    for (int b = lane; b < gridDim.x; b += 32) {
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        if (i < my_rows) {
+          t[i] += __ldcg(partials +
+                         static_cast<int64_t>(warp + i * kWarps) * gridDim.x +
+                         b);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      if (i < my_rows) {  // the same for every lane of the warp
+        const float v = warp_sum(t[i]);
+        if (lane == 0) wg[warp + i * kWarps] = v;
       }
     }
   }
   __syncthreads();
-  if (threadIdx.x < 2 * m) {
-    float t = 0.f;
-    for (int w = 0; w < kWarps; ++w) t += red[w][threadIdx.x];
-    partials[static_cast<int64_t>(threadIdx.x) * gridDim.x + blockIdx.x] = t;
-  }
-}
-
-// Pass 2 (one block): wg = sum_b partials[:, b] in a fixed order, one warp
-// per row of W; u = C wg.
-__global__ void __launch_bounds__(kMixThreads)
-    mix(const float* __restrict__ partials, int num_partials, int two_m,
-        const float* __restrict__ c, float* __restrict__ u) {
-  __shared__ float wg[2 * kMaxMem];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int r = warp; r < two_m; r += kMixThreads / 32) {
-    float t = 0.f;
-    for (int b = lane; b < num_partials; b += 32) {
-      t += partials[static_cast<int64_t>(r) * num_partials + b];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int r = warp + i * kWarps;
+    if (r < two_m) {  // the same for every lane of the warp
+      float v = lane < two_m ? c_lo[i] * wg[lane] : 0.f;
+      if (lane + 32 < two_m) v = fmaf(c_hi[i], wg[lane + 32], v);
+      v = warp_sum(v);
+      if (lane == 0) {
+        park_row[r].x = v;
+        ring_row[r].x = v;
+      }
     }
-    t = warp_sum(t);
-    if (lane == 0) wg[r] = t;
   }
   __syncthreads();
-  if (threadIdx.x < two_m) {
-    float v = 0.f;
-    for (int k = 0; k < two_m; ++k) {
-      v = fmaf(c[threadIdx.x * two_m + k], wg[k], v);
+
+  constexpr int kStep = kExpand * kThreads;
+  const int held = chunks < kStages ? chunks : kStages;
+  const int gone = chunks - held;  // all of them `chunk` columns wide
+  const int64_t gone_cols = static_cast<int64_t>(gone) * chunk;
+
+  // The columns that no buffer holds any more, [P, P + gone_cols), straight
+  // from device memory (L2 where it still has them), the last ones streamed
+  // first: a thread takes kGone columns kThreads apart and kGoneRows rows at
+  // a time, so that it has kGone * kGoneRows loads in flight.
+  constexpr int kGone = 2;
+  constexpr int kGoneRows = 8;
+  for (int64_t base = tid; base < gone_cols; base += kGone * kThreads) {
+    int64_t col[kGone];  // of the block's columns; past the end: the last
+    float t[kGone];
+#pragma unroll
+    for (int i = 0; i < kGone; ++i) {
+      const int64_t back = base + i * kThreads;
+      col[i] = P + gone_cols - 1 - (back < gone_cols ? back : base);
+      t[i] = 0.f;
     }
-    u[threadIdx.x] = v;
+    for (int r = 0; r < two_m; r += kGoneRows) {
+      T w[kGoneRows][kGone];
+#pragma unroll
+      for (int j = 0; j < kGoneRows; ++j) {
+        const T* row = row_of(r + j < two_m ? r + j : 0);
+#pragma unroll
+        for (int i = 0; i < kGone; ++i) w[j][i] = row[col[i]];
+      }
+#pragma unroll
+      for (int j = 0; j < kGoneRows; ++j) {
+        const float u = park_row[r + j].x;  // 0 past the last row
+#pragma unroll
+        for (int i = 0; i < kGone; ++i) t[i] = fmaf(u, to_f32(w[j][i]), t[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kGone; ++i) {
+      if (base + i * kThreads < gone_cols) {
+        d[j0 + col[i]] = fmaf(gam, gb[col[i]], t[i]);
+      }
+    }
   }
+
+  // The columns that shared memory holds, `total` of them: a thread takes up
+  // to kExpand of them kThreads apart, and the rows 4 at a time.  locate(i)
+  // gives where column i of them lies: its element of the buffer's first
+  // row (in elements after the head), its g (in floats of the shared
+  // memory), and which of the block's columns it is.  row_at[r] is (u[r],
+  // where row r starts).
+  const T* all_rows = reinterpret_cast<const T*>(smem + kHeadBytes);
+  auto expand = [&](int64_t total, const float2* row_at, auto locate) {
+    for (int64_t base = tid; base < total; base += kStep) {
+      int row0[kExpand];
+      int g_at[kExpand];
+      int64_t col[kExpand];
+      float t[kExpand];
+#pragma unroll
+      for (int i = 0; i < kExpand; ++i) {
+        const int64_t at = base + i * kThreads;
+        locate(at < total ? at : base, row0[i], g_at[i], col[i]);
+        t[i] = 0.f;
+      }
+      for (int r = 0; r < two_m; r += 4) {
+        float2 e[4];
+        float w[4][kExpand];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) e[j] = row_at[r + j];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int i = 0; i < kExpand; ++i) {
+            w[j][i] = to_f32(all_rows[row0[i] + __float_as_int(e[j].y)]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int i = 0; i < kExpand; ++i) t[i] = fmaf(e[j].x, w[j][i], t[i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kExpand; ++i) {
+        if (base + i * kThreads < total) {
+          d[j0 + col[i]] = fmaf(gam, head[g_at[i]], t[i]);
+        }
+      }
+    }
+  };
+  // where a buffer's rows and its g start, as locate gives them
+  auto rows_at = [&](unsigned char* buf) {
+    return static_cast<int>((buf - smem - kHeadBytes) / ESIZE);
+  };
+  auto g_at_of = [&](unsigned char* buf, int ld) {
+    return static_cast<int>(g_of(buf, ld) - head) + mis[two_m];
+  };
+  // the chunks the ring holds, in one pass: a thread's columns lie in
+  // different chunks
+  expand(rest - gone_cols, ring_row,
+         [&](int64_t at, int& row0, int& g_at, int64_t& col) {
+           const int k = static_cast<int>(at / chunk);  // of the held chunks
+           const int c = static_cast<int>(at - static_cast<int64_t>(k) * chunk);
+           unsigned char* buf = ring + ((gone + k) % kStages) * ring_stride;
+           row0 = rows_at(buf) + c;
+           g_at = g_at_of(buf, ld_c) + c;
+           col = P + gone_cols + at;
+         });
+  expand(P, park_row, [&](int64_t at, int& row0, int& g_at, int64_t& col) {
+    row0 = rows_at(park_buf) + static_cast<int>(at);
+    g_at = g_at_of(park_buf, ld_p) + static_cast<int>(at);
+    col = at;
+  });
 }
 
-// Pass 3: d[j] = gamma * g[j] + sum_r u[r] W[r, j].
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    expand(const T* __restrict__ s, const T* __restrict__ y,
-           const float* __restrict__ g, const float* __restrict__ u,
-           const float* __restrict__ gamma, int m, int64_t n,
-           float* __restrict__ d) {
-  __shared__ float us[2 * kMaxMem];
-  if (threadIdx.x < 2 * m) us[threadIdx.x] = u[threadIdx.x];
-  __syncthreads();
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (j >= n) return;
-  float t = 0.f;
-  for (int r = 0; r < m; ++r) t = fmaf(us[r], to_f32(s[r * n + j]), t);
-  for (int r = 0; r < m; ++r) t = fmaf(us[m + r], to_f32(y[r * n + j]), t);
-  d[j] = fmaf(*gamma, g[j], t);
+const void* kernel_of(bool bf16) {
+  return bf16 ? reinterpret_cast<const void*>(direction_parked<__nv_bfloat16>)
+              : reinterpret_cast<const void*>(direction_parked<float>);
 }
 
-template <typename T, int MAXM>
-void launch_project(const T* s, const T* y, const float* g, int m, int64_t n,
-                    float* partials, int num_partials, cudaStream_t stream) {
-  project_partials<T, MAXM>
-      <<<num_partials, kThreads, 0, stream>>>(s, y, g, m, n, partials);
-}
+// What the kernel needs to know of the current device, read once per
+// device.  usable is false where the card cannot launch the kernel at all.
+struct Card {
+  bool ready;
+  bool usable;
+  int sms;
+  int smem;  // opt-in shared memory of a block, bytes
+};
 
-template <typename T>
-int run(const void* s_v, const void* y_v, const float* g, const float* c,
-        const float* gamma, float* d, float* scratch, int m, int64_t n,
-        int num_partials, cudaStream_t stream) {
-  const T* s = static_cast<const T*>(s_v);
-  const T* y = static_cast<const T*>(y_v);
-  float* partials = scratch;
-  float* u = scratch + static_cast<int64_t>(num_partials) * 2 * m;
-  if (m <= 4) {
-    launch_project<T, 4>(s, y, g, m, n, partials, num_partials, stream);
-  } else if (m <= 8) {
-    launch_project<T, 8>(s, y, g, m, n, partials, num_partials, stream);
-  } else if (m <= 16) {
-    launch_project<T, 16>(s, y, g, m, n, partials, num_partials, stream);
-  } else {
-    launch_project<T, kMaxMem>(s, y, g, m, n, partials, num_partials, stream);
+const Card& card() {
+  static Card cards[kMaxDevices] = {};
+  static const Card none = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) {
+    return none;
   }
-  mix<<<1, kMixThreads, 0, stream>>>(partials, num_partials, 2 * m, c, u);
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  expand<T><<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(
-      s, y, g, u, gamma, m, n, d);
-  return static_cast<int>(cudaGetLastError());
+  Card& cd = cards[dev];
+  if (cd.ready) return cd;
+  int sms = 0, smem = 0, coop = 0;
+  bool ok =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ==
+          cudaSuccess &&
+      cudaDeviceGetAttribute(&smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) == cudaSuccess &&
+      cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev) ==
+          cudaSuccess &&
+      coop != 0 && sms >= 1 &&
+      // a ring of the largest m with chunks of 32 columns has to fit
+      smem >= kHeadBytes + (kStages + 1) * buffer_bytes(kMaxMem, 32, 4);
+  for (int t = 0; ok && t < 2; ++t) {
+    int per_sm = 0;
+    ok = cudaFuncSetAttribute(kernel_of(t != 0),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem) == cudaSuccess &&
+         cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel_of(t != 0), kThreads, smem) == cudaSuccess &&
+         per_sm >= 1;
+  }
+  cd.sms = sms;
+  cd.smem = smem;
+  cd.usable = ok;
+  cd.ready = true;
+  return cd;
+}
+
+// The launch: blocks (at most one per SM, so that all are resident), columns
+// per block, parked columns per block, columns of a ring buffer (0: no
+// ring, everything parks) and the shared memory; blocks is 0 where the
+// arguments are out of range or the card cannot launch the kernel.
+struct Plan {
+  int blocks;
+  long long cols;
+  int park;
+  int chunk;
+  size_t smem;
+};
+
+Plan plan(int m, long long n, bool bf16) {
+  Plan pl = {};
+  const Card& cd = card();
+  if (!cd.usable || m < 1 || m > kMaxMem || n < 1) return pl;
+  const int esize = bf16 ? 2 : 4;
+  const int vec = 16 / esize;
+  long long blocks = (n + kMinCols - 1) / kMinCols;
+  if (blocks > cd.sms) blocks = cd.sms;
+  pl.cols = (n + blocks - 1) / blocks;
+  pl.blocks = static_cast<int>((n + pl.cols - 1) / pl.cols);
+  const long long room = cd.smem - kHeadBytes;
+  // the largest column count whose buffer is at most `bytes`: a multiple of
+  // the vector
+  auto fits = [&](long long bytes) {
+    const long long per_col = 2 * m * esize + 4;
+    const long long fixed = static_cast<long long>(2 * m) * vec * esize + 16;
+    const long long c = bytes < fixed ? 0 : (bytes - fixed) / per_col;
+    return c / vec * vec;
+  };
+  if (pl.cols <= fits(room)) {
+    pl.park = static_cast<int>((pl.cols + vec - 1) / vec * vec);
+    pl.chunk = 0;
+    pl.smem = kHeadBytes + buffer_bytes(m, pl.park, esize);
+    return pl;
+  }
+  // It does not fit: nothing is parked for good, all columns pass through
+  // the ring in chunks of one size, and the last kStages of them stay.
+  const long long cap = fits((room - buffer_bytes(m, 0, esize)) / kStages);
+  if (cap < vec) return Plan{};
+  const long long chunks = (pl.cols + cap - 1) / cap;
+  pl.park = 0;
+  pl.chunk = static_cast<int>(((pl.cols + chunks - 1) / chunks + vec - 1) /
+                              vec * vec);
+  pl.smem = kHeadBytes + buffer_bytes(m, 0, esize) +
+            kStages * buffer_bytes(m, pl.chunk, esize);
+  return pl;
 }
 
 }  // namespace
@@ -194,24 +593,57 @@ extern "C" {
 // Largest m (number of pairs) the kernels take.
 int sqn_direction_max_mem(void) { return kMaxMem; }
 
+// Floats of scratch sqn_direction_streamed needs on the current device (one
+// partial W g per block); 0 if the arguments are out of range or the card
+// cannot launch the kernel.
+long long sqn_direction_streamed_scratch(int m, long long n, int storage_bf16) {
+  return static_cast<long long>(plan(m, n, storage_bf16 != 0).blocks) * 2 * m;
+}
+
+// Columns of W that sqn_direction_streamed reads from device memory or L2
+// only once on the current device, of n: what stays in shared memory between
+// its two uses (the parked columns, and the chunks the ring holds last).
+long long sqn_direction_streamed_parked(int m, long long n, int storage_bf16) {
+  const Plan pl = plan(m, n, storage_bf16 != 0);
+  long long total = 0;
+  for (int b = 0; b < pl.blocks; ++b) {
+    const long long left = n - b * pl.cols;
+    const long long mine = left < pl.cols ? left : pl.cols;
+    const long long parked = mine < pl.park ? mine : pl.park;
+    long long held = 0;
+    if (pl.chunk > 0) {
+      const long long rest = mine - parked;
+      const long long chunks = (rest + pl.chunk - 1) / pl.chunk;
+      const long long gone = chunks > kStages ? chunks - kStages : 0;
+      held = rest - gone * pl.chunk;
+    }
+    total += parked + held;
+  }
+  return total;
+}
+
 // d = gamma * g + [S; Y]^T (C ([S; Y] g)).
 //   s, y      [m, n] row-major, float32 (storage_bf16 = 0) or bfloat16 (1)
 //   g, d      [n] float32;  c [2m, 2m] float32 row-major;  gamma [1] float32
-//   scratch   float32, (num_partials + 1) * 2m elements
-// Returns cudaGetLastError() after the launches (0 on success).
+//   scratch   float32, sqn_direction_streamed_scratch(m, n, storage_bf16)
+// Returns the launch's error code (0 on success).
 int sqn_direction_streamed(const void* s, const void* y, int storage_bf16,
                            const float* g, const float* c, const float* gamma,
                            float* d, float* scratch, int m, long long n,
-                           int num_partials, void* stream) {
-  if (m < 1 || m > kMaxMem || n < 1 || num_partials < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (storage_bf16) {
-    return run<__nv_bfloat16>(s, y, g, c, gamma, d, scratch, m, n,
-                              num_partials, st);
-  }
-  return run<float>(s, y, g, c, gamma, d, scratch, m, n, num_partials, st);
+                           void* stream) {
+  const Plan pl = plan(m, n, storage_bf16 != 0);
+  if (pl.blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
+  int64_t n64 = n;
+  int64_t cols = pl.cols;
+  int park = pl.park;
+  int chunk = pl.chunk;
+  void* args[] = {&s,       &y, &g,   &c,    &gamma, &d,
+                  &scratch, &m, &n64, &cols, &park,  &chunk};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      kernel_of(storage_bf16 != 0), dim3(pl.blocks), dim3(kThreads), args,
+      pl.smem, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -44,7 +44,7 @@ import torch
 from stochqn_tpu_torch.core import adaqn, sqn
 from stochqn_tpu_torch.core.config import AdaQNConfig, SQNConfig
 from stochqn_tpu_torch.core.enums import INFO_NAMES, TASK_NAMES, Info, Task
-from stochqn_tpu_torch.core.protocol import host_ints
+from stochqn_tpu_torch.core.protocol import host_ints, resolve_device
 
 
 def _resolve_dtype(use_float: bool, dtype) -> torch.dtype:
@@ -53,16 +53,6 @@ def _resolve_dtype(use_float: bool, dtype) -> torch.dtype:
     if isinstance(dtype, torch.dtype):
         return dtype
     return torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
-
-
-def _resolve_device(device) -> torch.device:
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "free mode runs on an NVIDIA GPU by default and none is "
-            "available; pass device='cpu' to run on the CPU")
-    return torch.device("cuda")
 
 
 class _StochQNFree:
@@ -85,7 +75,7 @@ class _StochQNFree:
         if backend != "torch":
             raise ValueError("backend must be 'torch' or 'native'")
         self.backend = backend
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.state = None
         self._n = None
         self._niter = 0

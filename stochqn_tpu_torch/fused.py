@@ -41,7 +41,8 @@ from stochqn_tpu_torch.core import adaqn, sqn
 from stochqn_tpu_torch.core.config import AdaQNConfig, SQNConfig
 from stochqn_tpu_torch.core.enums import Info
 from stochqn_tpu_torch.core.protocol import (commit_info, no_bad,
-                                             scalar_like, step_info)
+                                             resolve_device, scalar_like,
+                                             step_info)
 from stochqn_tpu_torch.core.state import AdaQNState, SQNState
 from stochqn_tpu_torch.models.losses import hvp_from_grad
 from stochqn_tpu_torch.ops.pairs import (commit_pair, conditional_flush,
@@ -243,8 +244,13 @@ class FusedTrainer:
                 "function-value guard)")
 
     def init(self, x0, device=None):
-        """Fresh state at ``x0`` (copied), on ``device`` (default: where
-        ``x0`` is, CPU for non-tensors)."""
+        """Fresh state at ``x0`` (copied), on ``device``.  With no
+        ``device`` a tensor stays where it is, and anything else (a numpy
+        array, a list) goes to the card: no CUDA device raises; pass
+        ``device="cpu"`` for the CPU."""
+        if not isinstance(x0, torch.Tensor):
+            device = resolve_device(
+                device, "FusedTrainer.init with an x0 that is no tensor")
         init = sqn.init if self.optimizer == "SQN" else adaqn.init
         return init(torch.as_tensor(x0, device=device), self.cfg)
 

@@ -7,10 +7,11 @@ direction
     d = gamma * g + W^T (C (W g)),   W = [s_mem; y_mem]  ([2m, n])
 
 the Hopper ports of ``stochqn_tpu/ops/pallas/two_loop_kernel.py``'s
-``direction_streamed`` (``csrc/direction_streamed.cu``: two passes over
-``W``, float32 or bfloat16 pairs, any size) and ``direction``
-(``csrc/direction.cu``: one read of ``W``, parked in shared memory across a
-grid-wide barrier, float32 pairs, capped by the card's shared memory; see
+``direction_streamed`` (``csrc/direction_streamed.cu``: float32 or bfloat16
+pairs of any size; one cooperative launch that parks what fits the card's
+shared memory across a grid-wide barrier and reads the rest twice) and
+``direction`` (``csrc/direction.cu``: one read of ``W``, all of it parked,
+float32 pairs, capped by the card's shared memory; see
 :func:`direction_fits`).
 
 ``project(s_mem, y_mem, grad)`` computes the uncached two-loop's projection
@@ -70,8 +71,6 @@ _COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _STORAGE = (torch.float32, torch.bfloat16)
 _MAX_MEM = 32                 # every kernel's largest m
-_PARTIAL_COLS = 1024          # columns per direction pass-1 block, at least
-_MAX_PARTIALS = 1024          # direction pass-1 blocks, at most
 
 _lib = None
 # (seconds, nvcc output) of the build this process made; None if the
@@ -143,22 +142,33 @@ def direction_streamed(s_mem: torch.Tensor, y_mem: torch.Tensor,
     if not _on_cuda("direction_streamed", s_mem):
         return direction_streamed_ref(s_mem, y_mem, grad, c, gamma)
     m, n = s_mem.shape
-    num_partials = min(-(-n // _PARTIAL_COLS), _MAX_PARTIALS)
-    fn = _library().sqn_direction_streamed
+    bf16 = int(s_mem.dtype == torch.bfloat16)
+    lib = _library()
     with torch.cuda.device(s_mem.device):
         d = torch.empty(n, dtype=torch.float32, device=s_mem.device)
-        scratch = torch.empty((num_partials + 1) * 2 * m,
+        scratch = torch.empty(lib.sqn_direction_streamed_scratch(m, n, bf16),
                               dtype=torch.float32, device=s_mem.device)
         stream = torch.cuda.current_stream(s_mem.device).cuda_stream
-        err = fn(s_mem.data_ptr(), y_mem.data_ptr(),
-                 int(s_mem.dtype == torch.bfloat16), grad.data_ptr(),
-                 c.data_ptr(), gamma.data_ptr(), d.data_ptr(),
-                 scratch.data_ptr(), m, n, num_partials, stream)
+        err = lib.sqn_direction_streamed(
+            s_mem.data_ptr(), y_mem.data_ptr(), bf16, grad.data_ptr(),
+            c.data_ptr(), gamma.data_ptr(), d.data_ptr(), scratch.data_ptr(),
+            m, n, stream)
     if err != 0:
         raise RuntimeError(f"direction_streamed: kernel launch failed with "
                            f"CUDA error {err}")
     LAUNCHES += 1
     return d
+
+
+def direction_streamed_parked(m: int, n: int, storage: torch.dtype,
+                              device: torch.device) -> int:
+    """How many of the ``n`` columns of ``[2m, n]`` pairs stored as
+    ``storage`` :func:`direction_streamed` keeps in shared memory between
+    its two uses of them on the CUDA ``device`` (the rest is read twice),
+    worked out by the kernel's source from the device's properties."""
+    with torch.cuda.device(device):
+        return int(_library().sqn_direction_streamed_parked(
+            m, n, int(storage == torch.bfloat16)))
 
 
 def direction_ref(s_mem: torch.Tensor, y_mem: torch.Tensor,
@@ -411,8 +421,12 @@ def _library():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn = lib.sqn_direction_streamed
         fn.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, i32,
-                       ctypes.c_longlong, i32, ptr]
+                       ctypes.c_longlong, ptr]
         fn.restype = i32
+        for fn in (lib.sqn_direction_streamed_scratch,
+                   lib.sqn_direction_streamed_parked):
+            fn.argtypes = [i32, ctypes.c_longlong, i32]
+            fn.restype = ctypes.c_longlong
         fn = lib.adaqn_project
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, ctypes.c_longlong,
                        i32, ptr]

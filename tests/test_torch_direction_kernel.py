@@ -6,7 +6,17 @@ Tolerances are those of ``tests/test_pallas_kernels.py`` for the same
 kernel (rtol 3e-5, atol 1e-4): float32 accumulation in different orders
 over n columns and 2m rows.  bfloat16 storage is rounded the same way on
 both sides (round to nearest even from the same float32 values) and
-upcast before any arithmetic, so it takes the same tolerance.
+upcast before any arithmetic, so it takes the same tolerance.  ``c`` is
+scaled by 1 / n, so the tolerance holds at every n and m here: the sums
+``W g`` grow like sqrt(n), ``u = c (W g)`` shrinks like 1 / sqrt(n), and
+``d`` stays of the order of ``gamma * g``.
+
+The shapes cover what the CUDA kernel treats apart: n with each remainder
+mod 4 (and mod 8 for bfloat16), since a row of the pair memory starts
+``r * n`` elements after the first and the kernel copies each row in whole
+aligned 16-byte vectors, keeping the row's own offset; m up to the largest the kernels take; and n that
+the card's shared memory holds wholly, in part and hardly at all between
+the kernel's two uses of the pairs.
 """
 import numpy as np
 import pytest
@@ -37,13 +47,15 @@ def _torch_args(s, y, g, c, gamma, storage, device="cpu"):
 
 
 @pytest.mark.parametrize("storage", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n", [700, 900, 1000, 1500])  # not tile multiples
-def test_ref_matches_pallas_interpret(n, storage):
+@pytest.mark.parametrize("m", [M, 20])
+# not tile multiples; 1000 ... 1003 have every remainder mod 4
+@pytest.mark.parametrize("n", [700, 900, 1000, 1001, 1002, 1003, 1500])
+def test_ref_matches_pallas_interpret(n, m, storage):
     pytest.importorskip("jax")
     import jax.numpy as jnp
     from stochqn_tpu.ops.pallas.two_loop_kernel import direction_streamed
 
-    s, y, g, c, gamma = _inputs(n)
+    s, y, g, c, gamma = _inputs(n, m=m)
     want = np.asarray(direction_streamed(
         jnp.asarray(s).astype(storage), jnp.asarray(y).astype(storage),
         jnp.asarray(g), jnp.asarray(c), jnp.asarray(gamma), tile_n=256,
@@ -100,15 +112,39 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (m, n): every remainder of n mod 8 at every m; the flagship n, which an
+# H100 parks wholly at m = 10 and in part at m = 20 and 32; an n of which it
+# parks an eighth.
+CUDA_SHAPES = ([(m, n) for m in (1, 4, 10, 20, 32)
+                for n in (700, 900, 1000, 1500, 1501, 1502, 1503, 1504,
+                          1505, 1506, 1507)]
+               + [(m, 292_083) for m in (4, 10, 20, 32)]
+               + [(32, 1_000_003)])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [700, 900, 1000, 1500, 292_083])
-def test_kernel_matches_ref_on_cuda(cuda_device, n, storage):
-    args = _torch_args(*_inputs(n, m=10), storage, cuda_device)
+@pytest.mark.parametrize("m,n", CUDA_SHAPES)
+def test_kernel_matches_ref_on_cuda(cuda_device, m, n, storage):
+    args = _torch_args(*_inputs(n, m=m), storage, cuda_device)
     launches = tlk.LAUNCHES
     got = tlk.direction_streamed(*args)
     torch.cuda.synchronize()
-    assert tlk.LAUNCHES == launches + 1
+    assert tlk.LAUNCHES == launches + 1       # one launch per direction
     want = tlk.direction_streamed_ref(*args)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=RTOL, atol=ATOL)
+    again = tlk.direction_streamed(*args)
+    assert torch.equal(got, again)            # the same bits twice
+
+
+@pytest.mark.cuda
+def test_kernel_parks_by_the_cards_shared_memory(cuda_device):
+    """What parks comes from the device's properties: all of a small n,
+    more columns in bfloat16 than in float32, fewer with more pairs."""
+    parked = tlk.direction_streamed_parked
+    assert parked(10, 1500, torch.float32, cuda_device) == 1500
+    n = 4_000_000
+    f32, bf16 = (parked(20, n, t, cuda_device)
+                 for t in (torch.float32, torch.bfloat16))
+    assert 0 < parked(32, n, torch.float32, cuda_device) < f32 < bf16 < n

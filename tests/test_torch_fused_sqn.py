@@ -217,3 +217,59 @@ def test_unported_optimizers_raise(optimizer):
             FusedTrainer(optimizer, AdaQNConfig.create(
                 max_incr=None, fisher_bf16=True), _torch_grad).init(
                     torch.zeros(3))
+
+
+def _init_trainer(optimizer):
+    if optimizer == "SQN":
+        return FusedTrainer("SQN", SQNConfig.create(mem_size=M), _torch_grad)
+    return FusedTrainer("adaQN", AdaQNConfig.create(
+        mem_size=M, fisher_size=4, max_incr=None), _torch_grad)
+
+
+def _assert_same_state(a, b):
+    for f in dataclasses.fields(a):
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        if dataclasses.is_dataclass(va):
+            _assert_same_state(va, vb)
+        elif isinstance(va, torch.Tensor):
+            assert va.device == vb.device and va.dtype == vb.dtype, f.name
+            assert torch.equal(va, vb), f.name
+        else:
+            assert va == vb, f.name
+
+
+@pytest.mark.parametrize("kind", ["numpy", "list"])
+@pytest.mark.parametrize("optimizer", ["SQN", "adaQN"])
+def test_init_non_tensor_x0_defaults_to_the_card(optimizer, kind):
+    """A numpy array or a list is no statement about a device: it goes to
+    the card, and without one ``init`` raises instead of running the whole
+    fused loop on the CPU unasked."""
+    trainer = _init_trainer(optimizer)
+    x0 = _data()[2]
+    arg = x0 if kind == "numpy" else x0.tolist()
+    if torch.cuda.is_available():
+        assert trainer.init(arg).x.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            trainer.init(arg)
+
+
+@pytest.mark.parametrize("kind", ["numpy", "list"])
+@pytest.mark.parametrize("optimizer", ["SQN", "adaQN"])
+def test_init_honours_device_cpu(optimizer, kind):
+    trainer = _init_trainer(optimizer)
+    x0 = _data()[2]
+    arg = x0 if kind == "numpy" else x0.tolist()
+    state = trainer.init(arg, device="cpu")
+    assert state.x.device.type == "cpu" and state.x.dtype == torch.float32
+    _assert_same_state(state, trainer.init(torch.from_numpy(x0)))
+
+
+@pytest.mark.parametrize("optimizer", ["SQN", "adaQN"])
+def test_init_tensor_stays_where_it_is(optimizer):
+    trainer = _init_trainer(optimizer)
+    x0 = torch.from_numpy(_data()[2])
+    state = trainer.init(x0)
+    assert state.x.device.type == "cpu" and state.mem.s.device.type == "cpu"
+    assert state.x.data_ptr() != x0.data_ptr()      # copied
+    np.testing.assert_array_equal(state.x.numpy(), x0.numpy())

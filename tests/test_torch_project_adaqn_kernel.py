@@ -10,6 +10,11 @@ advance no longer fits sums of that length, so both are held against a
 float64 plain version instead, within 1e-5 of the sum of the terms'
 magnitudes: a float32 sum in any blocked order carries at most a few
 hundred roundings of eps = 6e-8 relative to that sum.
+
+n takes every remainder mod 4: a row of the pair memory starts ``r * n``
+floats after the first, so with such an n every row lies differently to
+the 16-byte boundaries, and the CUDA kernel stages each row onto a boundary
+of its own before it reads 16 bytes at a time.
 """
 import numpy as np
 import pytest
@@ -47,7 +52,8 @@ def _float64_ref(s, y, d, g):
 
 
 @pytest.mark.parametrize("signed", [False, True], ids=["positive", "signed"])
-@pytest.mark.parametrize("n", [700, 1000, 1500])    # not multiples of 512
+# not multiples of 512; 1000 ... 1003 have every remainder mod 4
+@pytest.mark.parametrize("n", [700, 1000, 1001, 1002, 1003, 1500])
 def test_ref_matches_pallas_interpret(n, signed):
     pytest.importorskip("jax")
     import jax.numpy as jnp
@@ -124,7 +130,7 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("signed", [False, True], ids=["positive", "signed"])
 @pytest.mark.parametrize("m", [1, 4, 10, 23, 32])
-@pytest.mark.parametrize("n", [700, 1000, 1500])
+@pytest.mark.parametrize("n", [700, 1000, 1001, 1002, 1003, 1500])
 def test_kernel_matches_ref_on_cuda(cuda_device, n, m, signed):
     args = _torch_args(*_inputs(n, m=m, signed=signed), cuda_device)
     launches = tlk.PROJECT_ADAQN_LAUNCHES
@@ -137,6 +143,9 @@ def test_kernel_matches_ref_on_cuda(cuda_device, n, m, signed):
                                    rtol=RTOL, atol=ATOL, err_msg=name)
     ydy = got[2].cpu().numpy()
     np.testing.assert_array_equal(ydy, ydy.T)      # mirrored, not recomputed
+    again = tlk.project_adaqn(*args)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)                   # the same bits twice
 
 
 @pytest.mark.cuda
