@@ -13,7 +13,8 @@ Phases (each failure raises and exits non-zero; nothing is caught):
 1. The card (``nvidia-smi`` name and power limit), torch / CUDA versions and
    the float32 matmul settings (TF32 off, "highest").  No CUDA: exit 1.
 2. Build the four kernels (both directions, both projections) from
-   ``stochqn_tpu_torch/csrc``, one nvcc per source, started together.
+   ``stochqn_tpu_torch/csrc``, one nvcc per source, started together;
+   ptxas's report must name every kernel and no spill.
 3. The streamed direction kernel against its plain PyTorch version on the
    card, on a real
    commit cache (12 commits into a ring of m = 10), at n = 900, 1,500 and
@@ -37,10 +38,8 @@ Phases (each failure raises and exits non-zero; nothing is caught):
 6. The adaQN projection kernel against its plain version on the card, on
    full committed rings (m = 4 and 10) at n = 700, 1,000, 1,500 and
    292,083, with a positive and a signed diagonal; at n = 292,083 both
-   against a float64 plain version; then both timed at the flagship shape,
-   and the kernel as its source fixes it beside a ring of 2 buffers and
-   beside a reduce launched in stream order.  Then kernel
-   against plain and the same bits twice at m = 1, 10, 23, 32 and
+   against a float64 plain version; then both timed at the flagship shape.
+   Then kernel against plain and the same bits twice at m = 1, 10, 23, 32 and
    n = 2,001 ... 2,004, positive and signed diagonal.
 7. The adaQN main path: ``FusedTrainer("adaQN")`` at BibTeX shape on
    the same data (fisher_size 100, RMSProp 0.9, eta 0.1), 2 epochs
@@ -87,6 +86,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -729,7 +729,6 @@ def adaqn_kernel_phase(dev):
                           f"max_abs_err={max_abs:.3e}")
                 if m == MEM_SIZE and not signed:
                     timing = time_projection(dev, args)
-                    timing["variants"] = projection_variants(dev, args)
     return max(worst, projection_shapes(dev, gen)), worst_share, timing
 
 
@@ -771,80 +770,6 @@ def projection_shapes(dev, gen):
           "same bits twice at m in {1, 10, 23, 32}, n = 2001 ... 2004, "
           f"positive and signed d (worst max_abs_err={worst:.3e})")
     return worst
-
-
-# project_adaqn.cu's ring depth and the way its reduce is launched, by the
-# macros its source reads; the first is what the source fixes.
-PROJECTION_VARIANTS = {
-    "ring of 3": (),
-    "ring of 2": ("-DADAQN_STAGES=2",),
-    "reduce in stream order": ("-DADAQN_DEPENDENT_LAUNCH=0",),
-}
-
-
-def projection_variants(dev, args):
-    """The projection kernel's variants timed side by side: its source
-    built again with each variant's macro, each a library of its own,
-    launched through the same C interface and timed in turns.
-    Returns ``{variant: [warm ms, L2-flushed ms]}``."""
-    import ctypes
-    import tempfile
-    s_mem, y_mem, diag, g = args
-    m, n = s_mem.shape
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    vals, mags = projection_f64(*args)
-    source = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                          "stochqn_tpu_torch", "csrc", "project_adaqn.cu")
-    os.makedirs(tlk._BUILD, exist_ok=True)
-    out = {}
-    with tempfile.TemporaryDirectory(dir=tlk._BUILD) as tmp:
-        libs = {name: os.path.join(tmp, f"variant{i}.so")
-                for i, name in enumerate(PROJECTION_VARIANTS)}
-        tlk._run([[tlk._nvcc(), *tlk._COMPILE_FLAGS[:-2], "-shared", *flags,
-                   "-o", libs[name], source]
-                  for name, flags in PROJECTION_VARIANTS.items()])
-        calls = {}
-        for name, path in libs.items():
-            lib = ctypes.CDLL(path)
-            ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.adaqn_project.argtypes = [ptr] * 6 + [i32, i64, i32, ptr]
-            lib.adaqn_project.restype = i32
-            lib.adaqn_project_scratch.argtypes = [i32, i64, i32]
-            lib.adaqn_project_scratch.restype = i64
-            res = torch.empty(3 * m + m * m, device=dev)
-            scratch = torch.empty(lib.adaqn_project_scratch(m, n, sms),
-                                  device=dev)
-
-            def call(lib=lib, res=res, scratch=scratch):
-                err = lib.adaqn_project(
-                    s_mem.data_ptr(), y_mem.data_ptr(), diag.data_ptr(),
-                    g.data_ptr(), res.data_ptr(), scratch.data_ptr(), m, n,
-                    sms, stream)
-                if err != 0:
-                    raise RuntimeError(f"variant launch failed: {err}")
-            call()
-            torch.cuda.synchronize()
-            parts = (res[:2 * m], res[2 * m:3 * m], res[3 * m:].view(m, m))
-            ratio = max(float(((r.double() - v).abs()
-                               / (ADAQN_BOUND_REL * mag)).max())
-                        for r, v, mag in zip(parts, vals, mags))
-            check(ratio <= 1.0, f"variant '{name}' vs float64 within "
-                  f"{ADAQN_BOUND_REL} x sum|terms| (worst entry at "
-                  f"{ratio:.3f} of it)")
-            calls[name] = call
-        names = list(calls)
-        times = {name: [[], []] for name in names}
-        for name in names + names[::-1]:
-            times[name][0].append(device_ms(calls[name], 50))
-            times[name][1].append(device_ms(calls[name], 30, flush))
-        for name in names:
-            out[name] = [statistics.mean(v) for v in times[name]]
-            print(f"  variant {name}: {out[name][0]:.4f} ms warm, "
-                  f"{out[name][1]:.4f} ms with L2 flushed (in turns, "
-                  f"n={n} m={m})", flush=True)
-    return out
 
 
 def time_projection(dev, args):
@@ -1559,6 +1484,25 @@ def free_adaqn_phase(dev):
     return launches
 
 
+def check_no_spills(report):
+    """ptxas's report of the build (``-Xptxas -v``): every kernel of the
+    four sources is in it, and none spills a byte."""
+    functions = re.findall(r"Compiling entry function '(\w+)'", report)
+    spills = [int(b) for b in re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                         report)]
+    registers = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
+    want = {"direction_parked": 2, "direction_one_read": 1,
+            "project_partials": 1, "project_reduce": 1, "adaqn_partials": 3,
+            "adaqn_reduce": 1}
+    found = {stem: sum(stem in f for f in functions) for stem in want}
+    check(found == want, f"ptxas reports every kernel: {found}")
+    check(len(spills) >= 2 * len(functions)
+          and len(registers) == len(functions) and not any(spills),
+          f"ptxas: {len(functions)} kernels, {sum(spills)} bytes of spill "
+          f"stores and loads, at most {max(registers, default=0)} registers "
+          "a thread")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke needs an NVIDIA GPU",
@@ -1583,12 +1527,13 @@ def main():
     phase("2. build the kernels")
     t0 = time.perf_counter()
     path = tlk.build()
-    built = tlk.build_log
+    nvcc_s, report = tlk.build_log
     print(f"  {path.relative_to(os.path.dirname(os.path.abspath(__file__)))}"
           f" ready in {time.perf_counter() - t0:.2f} s"
-          + (f" (nvcc {built[0]:.2f} s)" if built else " (already built)"))
-    if built:
-        print("  " + built[1].strip().replace("\n", "\n  "), flush=True)
+          + (" (already built)" if nvcc_s is None
+             else f" (nvcc {nvcc_s:.2f} s)"))
+    print("  " + report.strip().replace("\n", "\n  "), flush=True)
+    check_no_spills(report)
 
     if "--kernels" in sys.argv[1:]:
         # the kernel phases alone (3, 6, 10): checks and times, no path

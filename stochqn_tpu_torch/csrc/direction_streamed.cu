@@ -70,6 +70,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
 
 namespace cg = cooperative_groups;
 
@@ -492,7 +493,7 @@ const void* kernel_of(bool bf16) {
 }
 
 // What the kernel needs to know of the current device, read once per
-// device.  usable is false where the card cannot launch the kernel at all.
+// device under a lock.  usable is false where the card cannot launch the kernel at all.
 struct Card {
   bool ready;
   bool usable;
@@ -501,12 +502,14 @@ struct Card {
 };
 
 const Card& card() {
+  static std::mutex lock;
   static Card cards[kMaxDevices] = {};
   static const Card none = {};
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) {
     return none;
   }
+  const std::lock_guard<std::mutex> guard(lock);
   Card& cd = cards[dev];
   if (cd.ready) return cd;
   int sms = 0, smem = 0, coop = 0;

@@ -58,31 +58,18 @@
 // bits.  S, Y, d and g are never padded or copied.
 //
 // Plain C interface, loaded with ctypes.  Both launches are on the caller's
-// stream; the function returns the first error of the two launches.
+// stream; the function returns the first error of sizing the grid and of
+// the two launches.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
-
-// The ring's depth (2 or 3): fixed here, overridden only to time the ring's
-// depths side by side.
-#ifndef ADAQN_STAGES
-#define ADAQN_STAGES 3
-#endif
-
-// Whether the reduce is launched as a programmatic dependent of the
-// partials (1), or in stream order after they have ended (0): fixed here,
-// overridden only to time the two side by side.
-#ifndef ADAQN_DEPENDENT_LAUNCH
-#define ADAQN_DEPENDENT_LAUNCH 1
-#endif
+#include <mutex>
 
 namespace {
 
-constexpr int kStages = ADAQN_STAGES;
-static_assert(kStages >= 2 && kStages <= 3, "the ring has 2 or 3 buffers");
-
+constexpr int kStages = 3;      // buffers of the ring
 constexpr int kMaxMem = 32;     // largest m (pairs) the kernel takes
 constexpr int kPatch = 4;       // a lane's register patch: 4 x 4 sums
 constexpr int kEntries = kPatch * kPatch;
@@ -112,6 +99,16 @@ __host__ __device__ constexpr size_t stage_bytes(int m, int tile) {
 // A ring of 128-column tiles of every m up to kMaxMem fits.
 static_assert(kStages * stage_bytes(kMaxMem, 128) <= kRingBytes,
               "shared memory");
+// The largest m whose units one block holds with one unit per warp.
+constexpr int max_mem_one_unit() {
+  int m = 1;
+  while (m < kMaxMem && num_units(m + 1) <= kMaxWarps) ++m;
+  return m;
+}
+// Every such m takes a ring of 256-column tiles: one unit per warp needs no
+// kernel of 128-column tiles.
+static_assert(kStages * stage_bytes(max_mem_one_unit(), 256) <= kRingBytes,
+              "one unit per warp goes with tiles of 256");
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -166,11 +163,9 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int warp = tid >> 5;
   const int warps = blockDim.x >> 5;
 
-#if ADAQN_DEPENDENT_LAUNCH
   // The reduce may be placed on the card from now on; it waits there until
   // this grid has ended and its partials are in memory.
   cudaTriggerProgrammaticLaunchCompletion();
-#endif
 
   for (int r = tid; r < rows; r += blockDim.x) {
     row_src[r] = r < m       ? s + r * n
@@ -349,9 +344,7 @@ __global__ void __launch_bounds__(kReduceThreads)
         k % kWgRows;
   }
   const float* src = partials + e * num_partials;
-#if ADAQN_DEPENDENT_LAUNCH
   cudaGridDependencySynchronize();
-#endif
   float v = 0.f;
   for (int b = lane; b < num_partials; b += 32) v += __ldcg(src + b);
   v = warp_sum(v);
@@ -368,8 +361,10 @@ __global__ void __launch_bounds__(kReduceThreads)
 
 // The launch: units per warp, threads per block, unit groups (gridDim.y),
 // the tile width, the ring's bytes and the pass-1 grid (one wave of blocks,
-// each taking a run of consecutive tiles).
+// each taking a run of consecutive tiles); err is the error of asking the
+// runtime what the card holds, and the grid is empty where it is set.
 struct Plan {
+  cudaError_t err;
   int upw;
   int threads;
   int groups;
@@ -382,57 +377,63 @@ struct Plan {
 using Partials = void (*)(const float*, const float*, const float*,
                           const float*, int, int64_t, int, float*);
 
-// One unit per warp is for m <= 13, whose ring always takes 256-column tiles.
+// One unit per warp goes with 256-column tiles (the static_assert above).
 Partials kernel_of(int upw, int tile) {
   if (upw == 1) return adaqn_partials<1, 256>;
   return tile == 256 ? adaqn_partials<2, 256> : adaqn_partials<2, 128>;
 }
 
 // Blocks of pass 1 that one SM holds at once for this m, asked of the
-// runtime once per device and m (0: not asked yet).
-int blocks_per_sm(const Plan& pl, int m) {
+// runtime once per device and m (0: not asked yet) under a lock.  Returns
+// the runtime's error, and cudaErrorLaunchOutOfResources where an SM holds
+// no block.
+cudaError_t blocks_per_sm(const Plan& pl, int m, int* per_sm) {
+  static std::mutex lock;
   static int cache[kMaxDevices][kMaxMem + 1] = {};
   static bool opted[kMaxDevices] = {};
   int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) {
-    return 1;
-  }
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  const std::lock_guard<std::mutex> guard(lock);
   if (!opted[dev]) {
     // dynamic shared memory over 48 KB has to be asked for
     for (Partials kernel : {kernel_of(1, 256), kernel_of(2, 256),
                             kernel_of(2, 128)}) {
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(kRingBytes));
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(kRingBytes));
+      if (err != cudaSuccess) return err;
     }
     opted[dev] = true;
   }
   if (cache[dev][m] == 0) {
-    int per_sm = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, kernel_of(pl.upw, pl.tile), pl.threads, pl.smem) !=
-            cudaSuccess ||
-        per_sm < 1) {
-      per_sm = 1;
-    }
-    cache[dev][m] = per_sm;
+    int asked = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &asked, kernel_of(pl.upw, pl.tile), pl.threads, pl.smem);
+    if (err != cudaSuccess) return err;
+    if (asked < 1) return cudaErrorLaunchOutOfResources;
+    cache[dev][m] = asked;
   }
-  return cache[dev][m];
+  *per_sm = cache[dev][m];
+  return cudaSuccess;
 }
 
 inline Plan plan(int m, int64_t n, int num_sms) {
-  Plan pl;
+  Plan pl = {};
   const int nu = num_units(m);
   pl.upw = nu <= kMaxWarps ? 1 : 2;
   const int warps = (nu + pl.upw - 1) / pl.upw;
   pl.threads = 32 * (warps < kMaxWarps ? warps : kMaxWarps);
   const int per_block = pl.threads / 32 * pl.upw;
   pl.groups = (nu + per_block - 1) / per_block;
-  static_assert(kStages * stage_bytes(13, 256) <= kRingBytes, "tiles of 256");
   pl.tile = kStages * stage_bytes(m, 256) <= kRingBytes ? 256 : 128;
   pl.smem = kStages * stage_bytes(m, pl.tile);
   const int64_t tiles = (n + pl.tile - 1) / pl.tile;
-  int64_t wave =
-      static_cast<int64_t>(blocks_per_sm(pl, m)) * num_sms / pl.groups;
+  int per_sm = 0;
+  pl.err = blocks_per_sm(pl, m, &per_sm);
+  if (pl.err != cudaSuccess) return pl;
+  int64_t wave = static_cast<int64_t>(per_sm) * num_sms / pl.groups;
   if (wave < 1) wave = 1;
   const int64_t tiles_per_block = (tiles + wave - 1) / wave;
   pl.tiles_per_block = static_cast<int>(tiles_per_block);
@@ -450,7 +451,7 @@ extern "C" {
 
 // Floats of scratch adaqn_project needs for these m and n on a card with
 // num_sms SMs (one partial sum per unit entry and pass-1 block); 0 if the
-// arguments are out of range.
+// arguments are out of range or the card cannot launch the kernel.
 long long adaqn_project_scratch(int m, long long n, int num_sms) {
   if (!valid(m, n, num_sms)) return 0;
   return static_cast<long long>(num_units(m)) * kEntries *
@@ -462,7 +463,8 @@ long long adaqn_project_scratch(int m, long long n, int num_sms) {
 //   out      float32, 3m + m*m: wg (2m) | ydg (m) | ydy (m x m)
 //   scratch  float32, adaqn_project_scratch(m, n, num_sms) floats
 //   num_sms  SMs of the card the stream belongs to (sizes the grid)
-// Returns the first error of the launches (0 on success).
+// Returns the first error of sizing the grid and of the launches (0 on
+// success).
 int adaqn_project(const float* s, const float* y, const float* d,
                   const float* g, float* out, float* scratch, int m,
                   long long n, int num_sms, void* stream) {
@@ -470,6 +472,7 @@ int adaqn_project(const float* s, const float* y, const float* d,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Plan pl = plan(m, n, num_sms);
+  if (pl.err != cudaSuccess) return static_cast<int>(pl.err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(pl.blocks, pl.groups);
   kernel_of(pl.upw, pl.tile)<<<grid, pl.threads, pl.smem, st>>>(
@@ -481,7 +484,7 @@ int adaqn_project(const float* s, const float* y, const float* d,
   cfg.stream = st;
   cudaLaunchAttribute dependent = {};
   dependent.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  dependent.val.programmaticStreamSerializationAllowed = ADAQN_DEPENDENT_LAUNCH;
+  dependent.val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = &dependent;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(

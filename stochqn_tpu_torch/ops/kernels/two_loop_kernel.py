@@ -73,8 +73,10 @@ _STORAGE = (torch.float32, torch.bfloat16)
 _MAX_MEM = 32                 # every kernel's largest m
 
 _lib = None
-# (seconds, nvcc output) of the build this process made; None if the
-# library was already built.
+# (seconds, nvcc output) of the library's build, set by :func:`build`: the
+# output holds ptxas's report of every kernel's registers and spills.  The
+# seconds are None where the library was already built; the output is then
+# read from the file the build left beside it.
 build_log = None
 
 
@@ -396,7 +398,9 @@ def build() -> Path:
     for name in _SOURCES:
         h.update((_CSRC / name).read_bytes())
     out = _BUILD / h.hexdigest()[:16] / "libstochqn_torch_kernels.so"
+    report = out.with_name("nvcc.log")
     if out.exists():
+        build_log = (None, report.read_text())
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -409,6 +413,9 @@ def build() -> Path:
                     for name, obj in zip(_SOURCES, objs)])
         lib = os.path.join(tmp, out.name)
         log += _run([[nvcc, *_LINK_FLAGS, "-o", lib, *objs]])
+        kept = os.path.join(tmp, report.name)
+        Path(kept).write_text(log)
+        os.replace(kept, report)
         os.replace(lib, out)
     build_log = (time.perf_counter() - t0, log)
     return out
