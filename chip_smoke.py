@@ -5,8 +5,8 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-(``python3 chip_smoke.py --kernels`` runs only the kernel phases 3, 6 and
-10, for work on a kernel; it prints no contract line.)
+(``python3 chip_smoke.py --kernels`` runs only the kernel phases 3, 6, 9
+and 10, for work on a kernel; it prints no contract line.)
 
 Phases (each failure raises and exits non-zero; nothing is caught):
 
@@ -53,9 +53,13 @@ Phases (each failure raises and exits non-zero; nothing is caught):
    timed one by one.
 8. adaQN device against CPU on a small problem.
 9. The ``project`` kernel against its plain version on the card at
-   n = 700, 1,000, 1,500, 2,048 and 292,083, m = 5 and 10; at n = 292,083
-   both against a float64 plain version; then timed at the flagship shape
-   beside the plain version and the library pair ``W @ g``, ``W @ W.T``.
+   n = 700, 1,000, 1,500, 2,048 and 292,083, m = 5 and 10, and at
+   n = 292,083 also m = 20; at n = 292,083 both against a float64 plain
+   version; timed at the flagship shape beside the plain version and the
+   library pair ``W @ g``, ``W @ W.T``.  Then kernel against plain, the
+   same bits twice and a symmetric Gram at m = 1, 10, 14, 20, 23, 32 and
+   n = 2,001 ... 2,008 (every 16-byte phase of the rows), and the kernel
+   timed at m = 20 and m = 32 beside its bound and the library pair there.
 10. The one-read ``direction`` kernel against its plain version and
     against the streamed kernel on a real commit cache at n = 900, 1,500,
     292,083 (where the card's cap admits it) and the largest n within the
@@ -71,7 +75,8 @@ Phases (each failure raises and exits non-zero; nothing is caught):
     kernel) against the cached direction, ``x`` against
     ``FusedTrainer("SQN")`` on the same batches, and the JAX package's
     loss (below).  Then three rounds with ``mem_size=20``, whose pairs no
-    H100 parks: one launch per step of the streamed kernel.
+    H100 parks: one launch per step of the streamed kernel, and the same
+    oracle audit after its two commits (``project`` at m = 20).
 12. The free-mode adaQN path for three boundaries: ``adaQN_free`` in
     float64, the function values it asks for against the JAX package's
     float64 run; and in float32 with ``use_pallas=True`` in its config, one
@@ -365,9 +370,10 @@ def direction_bound(m, n, storage_bytes=4):
 
 
 def project_bound(m, n):
-    """W g and W W^T: S, Y and g read, 2m + 4m^2 sums written."""
+    """W g and W W^T: S, Y and g read, 2m + 4m^2 sums written; the
+    products of W g and of the Gram's upper triangle (it is symmetric)."""
     nbytes = 4 * ((2 * m + 1) * n + 2 * m + 4 * m * m)
-    return bound(nbytes, 2 * n * (2 * m + 4 * m * m))
+    return bound(nbytes, 2 * n * (2 * m + m * (2 * m + 1)))
 
 
 def project_adaqn_bound(m, n):
@@ -1022,13 +1028,19 @@ def adaqn_parity_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+def project_library(w, g):
+    """The library pair that computes ``project``'s outputs from a ready
+    ``W = [S; Y]``."""
+    return lambda: (w @ g, w @ w.T)
+
+
 def project_kernel_phase(dev):
     phase("9. project kernel vs plain version on the card")
     gen = torch.Generator(device=dev).manual_seed(2)
     worst = worst_share = 0.0
     timing = None
     for n in (700, 1000, 1500, 2048, N_FLAGSHIP):
-        for m in (5, MEM_SIZE):
+        for m in (5, MEM_SIZE) + ((M20,) if n == N_FLAGSHIP else ()):
             mem = committed_memory(n, torch.float32, dev, gen,
                                    commits=m + 2, m=m)
             g = torch.randn(n, device=dev, generator=gen)
@@ -1065,14 +1077,66 @@ def project_kernel_phase(dev):
                       f"sum|terms| (worst entry at {ratio:.3f} of it); "
                       f"kernel vs plain max_abs_err={max_abs:.3e}")
             if m == MEM_SIZE:
-                w32 = torch.cat([mem.s, mem.y])
-
-                def library():
-                    return w32 @ g, w32 @ w32.T
-                timing = time_kernel(f"n={n} m={m}",
-                                     lambda: tlk.project(*args),
-                                     lambda: tlk.project_ref(*args), library)
+                timing = time_kernel(
+                    f"n={n} m={m}", lambda: tlk.project(*args),
+                    lambda: tlk.project_ref(*args),
+                    project_library(torch.cat([mem.s, mem.y]), g))
+    worst = max(worst, project_shapes(dev, gen))
+    for m in (M20, 32):
+        timing[f"m{m}"] = project_large_m(dev, gen, m)
     return worst, worst_share, timing
+
+
+def project_shapes(dev, gen):
+    """The ``project`` kernel against its plain version, the same bits twice
+    and a symmetric Gram, at n with every remainder mod 8 (every row of the
+    pairs then has its own 16-byte phase) and m = 1, 10, 14, 20, 23 and 32
+    (g as a row of the last row block and as a unit of its own, with and
+    without staging warps, one and several unit groups)."""
+    worst = 0.0
+    for m in (1, MEM_SIZE, 14, M20, 23, 32):
+        for n in range(2001, 2009):
+            s = torch.randn(m, n, device=dev, generator=gen)
+            y = s + 0.3 * torch.randn(m, n, device=dev, generator=gen)
+            g = torch.randn(n, device=dev, generator=gen)
+            got = tlk.project(s, y, g)
+            again = tlk.project(s, y, g)
+            want = tlk.project_ref(s, y, g)
+            torch.cuda.synchronize()
+            max_abs = max(float((a - b).abs().max())
+                          for a, b in zip(got, want))
+            worst = max(worst, max_abs)
+            ok = (all(torch.equal(a, b) for a, b in zip(got, again))
+                  and bool(torch.equal(got[1], got[1].T))
+                  and all(torch.allclose(a, b, rtol=ADAQN_RTOL,
+                                         atol=ADAQN_ATOL)
+                          for a, b in zip(got, want)))
+            if not ok:
+                check(False, f"m={m} n={n}: the same bits twice, gram "
+                      f"symmetric, max_abs_err={max_abs:.3e} within rtol="
+                      f"{ADAQN_RTOL} atol={ADAQN_ATOL}")
+    check(True, "project agrees with its plain version, gives the same bits "
+          "twice and a symmetric Gram at m in {1, 10, 14, 20, 23, 32}, "
+          f"n = 2001 ... 2008 (worst max_abs_err={worst:.3e})")
+    return worst
+
+
+def project_large_m(dev, gen, m):
+    """``project`` timed at n = 292,083 and a large m (m = 20 is the shape
+    the ``mem_size=20`` audits of phase 11 give it), beside the plain
+    version, the library pair and the bound at this shape."""
+    s = torch.randn(m, N_FLAGSHIP, device=dev, generator=gen)
+    y = s + 0.3 * torch.randn(m, N_FLAGSHIP, device=dev, generator=gen)
+    g = torch.randn(N_FLAGSHIP, device=dev, generator=gen)
+    t = time_kernel(f"n={N_FLAGSHIP} m={m}", lambda: tlk.project(s, y, g),
+                    lambda: tlk.project_ref(s, y, g),
+                    project_library(torch.cat([s, y]), g))
+    t.update(project_bound(m, N_FLAGSHIP))
+    print(f"  bound at m={m} n={N_FLAGSHIP}: {t['bound_ms']:.5f} ms by "
+          f"{t['bound_by']}; kernel at {100 * t['bound_ms'] / t['ms']:.1f}% "
+          f"of it warm, {100 * t['bound_ms'] / t['cold_ms']:.1f}% with L2 "
+          "flushed", flush=True)
+    return t
 
 
 def direction_kernel_phase(dev):
@@ -1206,7 +1270,7 @@ class FreeLoop:
         self.opt, self.X, self.Y, self.step = opt, X, Y, step
         self.x = x0.cpu().numpy().copy()
         self.audit = audit
-        self.tasks, self.infos, self.fvals = [], [], []
+        self.tasks, self.infos, self.fvals, self.audits = [], [], [], []
         self.call_ms = {}
         self.b = -1
         self.req = self._run()
@@ -1286,8 +1350,6 @@ def free_sqn_phase(dev):
         setattr(tlk, name, lambda *a, _n=name, _f=fn: (
             plain_calls.append(_n), _f(*a))[1])
 
-    audits = []
-
     def audit(loop, g):
         """After an accepted commit: the uncached oracle through the
         project kernel against the cached direction the next step takes
@@ -1303,10 +1365,11 @@ def free_sqn_phase(dev):
                           use_pallas=True)
         scale = float(used.abs().max())
         err = float((oracle - used).abs().max())
-        audits.append(err / scale)
+        loop.audits.append(err / scale)
         check(bool(torch.allclose(oracle, used, rtol=KERNEL_RTOL,
                                   atol=KERNEL_RTOL * scale)),
-              f"after commit {len(audits)} ({int(mem.count)} pairs): "
+              f"after commit {len(loop.audits)} ({int(mem.count)} pairs of "
+              f"{mem.s.shape[0]}): "
               f"two_loop(use_pallas=True) vs the cached direction "
               f"max_abs_err={err:.3e} (max |d| {scale:.3e}) within rtol="
               f"{KERNEL_RTOL} of the entry plus {KERNEL_RTOL} of max |d|")
@@ -1325,6 +1388,7 @@ def free_sqn_phase(dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_launches()
+    audits = loop.audits
     print(f"  1 epoch ({NUM_BATCHES} steps, {len(loop.tasks)} requests) in "
           f"{wall:.3f} s, first call and the {len(audits)} audits included",
           flush=True)
@@ -1408,13 +1472,20 @@ def free_sqn_phase(dev):
           f"({tlk.direction_max_n(m20, dev)})")
     opt20 = SQN_free(mem_size=m20, bfgs_upd_freq=UPD_FREQ, use_float=True)
     reset_launches()
-    loop20 = FreeLoop(opt20, X, Y, x0, STEP)
+    loop20 = FreeLoop(opt20, X, Y, x0, STEP, audit)
     loop20.run(3 * UPD_FREQ)
+    # the last boundary's commit, as above
+    audit(loop20, grad_fn(loop20._at(loop20.req["requested_on"]),
+                          (X[0], Y[0])))
     counts = read_launches()
     streamed = counts.pop("direction_streamed")
+    launches["project_m20"] = counts.pop("project")
     check(streamed == 3 * UPD_FREQ and not any(counts.values()),
           f"mem_size={m20}: direction_streamed launched {streamed} times "
-          f"for {3 * UPD_FREQ} steps; the other kernels: {counts}")
+          f"for {3 * UPD_FREQ} steps; direction and project_adaqn: {counts}")
+    check(launches["project_m20"] == len(loop20.audits) == 2,
+          f"mem_size={m20}: project launched {launches['project_m20']} "
+          "times, once per audit after the 2 commits")
     check(loop20.tasks == expected_sqn_tasks(3 * UPD_FREQ)
           and set(loop20.infos) == {"no_problems_encountered"},
           f"mem_size={m20}: request order and iteration_info")
@@ -1429,7 +1500,7 @@ def free_sqn_phase(dev):
     for name, fn in plain.items():
         setattr(tlk, name, fn)
     launches["direction_streamed"] = streamed
-    return launches, free_ips, max(audits)
+    return launches, free_ips, max(audits + loop20.audits)
 
 
 def free_adaqn_phase(dev):
@@ -1536,12 +1607,14 @@ def main():
     check_no_spills(report)
 
     if "--kernels" in sys.argv[1:]:
-        # the kernel phases alone (3, 6, 10): checks and times, no path
+        # the kernel phases alone (3, 6, 9, 10): checks and times, no path
         _, timing = kernel_phase(dev)
         _, _, adaqn_timing = adaqn_kernel_phase(dev)
+        _, _, project_timing = project_kernel_phase(dev)
         _, direction_timing = direction_kernel_phase(dev)
         print(json.dumps({"direction_streamed": timing,
                           "project_adaqn": adaqn_timing,
+                          "project": project_timing,
                           "direction": direction_timing}))
         print(card)
         return 0
@@ -1566,7 +1639,9 @@ def main():
         "direction_streamed": {
             "fused_sqn": sqn_launches.get("direction_streamed", 0),
             "free_sqn": free_launches.get("direction_streamed", 0)},
-        "project": {"free_sqn_oracle_audits": free_launches["project"]},
+        "project": {"free_sqn_oracle_audits": free_launches["project"],
+                    "free_sqn_m20_oracle_audits":
+                        free_launches["project_m20"]},
         "project_adaqn": {"fused_adaqn": adaqn_launches,
                           "free_adaqn": free_adaqn_launches},
     }

@@ -65,12 +65,16 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <mutex>
+
+#include "projection.cuh"
 
 namespace {
 
+using projection::kMaxMem;
+using projection::Patch;
+using projection::patch;
+
 constexpr int kStages = 3;      // buffers of the ring
-constexpr int kMaxMem = 32;     // largest m (pairs) the kernel takes
 constexpr int kPatch = 4;       // a lane's register patch: 4 x 4 sums
 constexpr int kEntries = kPatch * kPatch;
 constexpr int kWgRows = 8;      // rows of W in one unit of wg
@@ -79,7 +83,6 @@ constexpr int kMaxThreads = kMaxWarps * 32;
 constexpr int kMaxRows = 2 * kMaxMem + 2;  // staged rows: S, Y, g, d
 constexpr int kLane = 4;        // columns a lane reads at once: 16 bytes
 constexpr size_t kRingBytes = 110 * 1024;  // the ring of a block, at most
-constexpr int kMaxDevices = 64;
 constexpr int kReduceThreads = 256;
 constexpr int kReduceWarps = kReduceThreads / 32;
 
@@ -118,22 +121,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Patch p of the upper triangle, row-major: block row bi, block column
-// bj >= bi, of nb block rows.
-struct Patch {
-  int bi;
-  int bj;
-};
-
-__host__ __device__ inline Patch patch(int p, int nb) {
-  int bi = 0;
-  while (p >= nb - bi) {
-    p -= nb - bi;
-    ++bi;
-  }
-  return {bi, bi + p};
-}
-
+// The index of the patch at block row bi, block column bj >= bi, of nb block
+// rows (projection::patch the other way round).
 __host__ __device__ inline int patch_index(int bi, int bj, int nb) {
   return bi * nb - bi * (bi - 1) / 2 + (bj - bi);
 }
@@ -383,43 +372,20 @@ Partials kernel_of(int upw, int tile) {
   return tile == 256 ? adaqn_partials<2, 256> : adaqn_partials<2, 128>;
 }
 
-// Blocks of pass 1 that one SM holds at once for this m, asked of the
-// runtime once per device and m (0: not asked yet) under a lock.  Returns
-// the runtime's error, and cudaErrorLaunchOutOfResources where an SM holds
-// no block.
-cudaError_t blocks_per_sm(const Plan& pl, int m, int* per_sm) {
-  static std::mutex lock;
-  static int cache[kMaxDevices][kMaxMem + 1] = {};
-  static bool opted[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  const std::lock_guard<std::mutex> guard(lock);
-  if (!opted[dev]) {
-    // dynamic shared memory over 48 KB has to be asked for
-    for (Partials kernel : {kernel_of(1, 256), kernel_of(2, 256),
-                            kernel_of(2, 128)}) {
-      err = cudaFuncSetAttribute(kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(kRingBytes));
-      if (err != cudaSuccess) return err;
-    }
-    opted[dev] = true;
-  }
-  if (cache[dev][m] == 0) {
-    int asked = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &asked, kernel_of(pl.upw, pl.tile), pl.threads, pl.smem);
+// Dynamic shared memory over 48 KB has to be asked for.
+cudaError_t opt_in() {
+  for (Partials kernel : {kernel_of(1, 256), kernel_of(2, 256),
+                          kernel_of(2, 128)}) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kRingBytes));
     if (err != cudaSuccess) return err;
-    if (asked < 1) return cudaErrorLaunchOutOfResources;
-    cache[dev][m] = asked;
   }
-  *per_sm = cache[dev][m];
   return cudaSuccess;
 }
 
 inline Plan plan(int m, int64_t n, int num_sms) {
+  static projection::BlocksPerSm blocks_per_sm;
   Plan pl = {};
   const int nu = num_units(m);
   pl.upw = nu <= kMaxWarps ? 1 : 2;
@@ -431,7 +397,8 @@ inline Plan plan(int m, int64_t n, int num_sms) {
   pl.smem = kStages * stage_bytes(m, pl.tile);
   const int64_t tiles = (n + pl.tile - 1) / pl.tile;
   int per_sm = 0;
-  pl.err = blocks_per_sm(pl, m, &per_sm);
+  pl.err = blocks_per_sm.ask(kernel_of(pl.upw, pl.tile), pl.threads, pl.smem,
+                             m, opt_in, &per_sm);
   if (pl.err != cudaSuccess) return pl;
   int64_t wave = static_cast<int64_t>(per_sm) * num_sms / pl.groups;
   if (wave < 1) wave = 1;
@@ -439,10 +406,6 @@ inline Plan plan(int m, int64_t n, int num_sms) {
   pl.tiles_per_block = static_cast<int>(tiles_per_block);
   pl.blocks = static_cast<int>((tiles + tiles_per_block - 1) / tiles_per_block);
   return pl;
-}
-
-bool valid(int m, long long n, int num_sms) {
-  return m >= 1 && m <= kMaxMem && n >= 1 && num_sms >= 1;
 }
 
 }  // namespace
@@ -453,7 +416,7 @@ extern "C" {
 // num_sms SMs (one partial sum per unit entry and pass-1 block); 0 if the
 // arguments are out of range or the card cannot launch the kernel.
 long long adaqn_project_scratch(int m, long long n, int num_sms) {
-  if (!valid(m, n, num_sms)) return 0;
+  if (!projection::valid(m, n, num_sms)) return 0;
   return static_cast<long long>(num_units(m)) * kEntries *
          plan(m, n, num_sms).blocks;
 }
@@ -468,7 +431,7 @@ long long adaqn_project_scratch(int m, long long n, int num_sms) {
 int adaqn_project(const float* s, const float* y, const float* d,
                   const float* g, float* out, float* scratch, int m,
                   long long n, int num_sms, void* stream) {
-  if (!valid(m, n, num_sms)) {
+  if (!projection::valid(m, n, num_sms)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Plan pl = plan(m, n, num_sms);
@@ -478,18 +441,9 @@ int adaqn_project(const float* s, const float* y, const float* d,
   kernel_of(pl.upw, pl.tile)<<<grid, pl.threads, pl.smem, st>>>(
       s, y, d, g, m, n, pl.tiles_per_block, scratch);
   const int outputs = m * (m + 1) + 2 * m;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((outputs + kReduceWarps - 1) / kReduceWarps);
-  cfg.blockDim = dim3(kReduceThreads);
-  cfg.stream = st;
-  cudaLaunchAttribute dependent = {};
-  dependent.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  dependent.val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = &dependent;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, adaqn_reduce, static_cast<const float*>(scratch), pl.blocks, m,
-      out);
+  const cudaError_t err = projection::launch_dependent(
+      adaqn_reduce, dim3((outputs + kReduceWarps - 1) / kReduceWarps),
+      kReduceThreads, 0, st, scratch, pl.blocks, m, out);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,7 +18,11 @@ float32 pairs, capped by the card's shared memory; see
 
     W g [2m],   W W^T [2m, 2m]
 
-in one pass, the port of the Pallas ``project`` (``csrc/project.cu``).
+in one pass, the port of the Pallas ``project`` (``csrc/project.cu``: tiles
+through a ring of ``cp.async`` buffers that staging warps keep full,
+``W W^T`` in 8 x 8 register patches, both launches programmatic dependents;
+``csrc/projection.cuh`` holds what it shares with
+``csrc/project_adaqn.cu``).
 
 ``project_adaqn(s_mem, y_mem, diag, grad)`` computes adaQN's projection
 
@@ -66,6 +70,7 @@ _CSRC = Path(__file__).resolve().parents[2] / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build"
 _SOURCES = ("direction_streamed.cu", "direction.cu", "project.cu",
             "project_adaqn.cu")
+_HEADERS = ("projection.cuh",)    # included by sources: hashed, not compiled
 _COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                   "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
@@ -385,7 +390,7 @@ def _run(cmds: list[list[str]]) -> str:
 
 def build() -> Path:
     """Compile the kernel library unless the current sources are built, and
-    return its path (``build/<hash of sources and flags>/``).
+    return its path (``build/<hash of sources, headers and flags>/``).
 
     Each source compiles in its own ``nvcc``, all started together, and one
     more links the objects.  The build happens in a fresh temporary
@@ -395,7 +400,7 @@ def build() -> Path:
     global build_log
     nvcc_flags = " ".join(_COMPILE_FLAGS + ("|",) + _LINK_FLAGS)
     h = hashlib.sha256(nvcc_flags.encode())
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         h.update((_CSRC / name).read_bytes())
     out = _BUILD / h.hexdigest()[:16] / "libstochqn_torch_kernels.so"
     report = out.with_name("nvcc.log")

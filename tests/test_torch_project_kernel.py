@@ -29,19 +29,28 @@ def _torch_args(arrays, device="cpu"):
     return tuple(torch.from_numpy(a).to(device) for a in arrays)
 
 
-@pytest.mark.parametrize("n", [1000, 2048])  # non-multiple + multiple of tile
-def test_ref_matches_pallas_interpret_and_matmuls(n):
+# m = 5 at a non-multiple and a multiple of the tile; then m whose 2m rows
+# leave room for g in their last block of 8 (1, 10, 14) and fill their blocks
+# (20), at every n mod 4
+_CPU_SHAPES = [pytest.param(M, 1000, id="1000"), pytest.param(M, 2048,
+                                                              id="2048")]
+_CPU_SHAPES += [pytest.param(m, n, id=f"m{m}-n{n}")
+                for m in (1, 10, 14, 20) for n in range(1001, 1005)]
+
+
+@pytest.mark.parametrize("m,n", _CPU_SHAPES)
+def test_ref_matches_pallas_interpret_and_matmuls(m, n):
     pytest.importorskip("jax")
     import jax.numpy as jnp
     from stochqn_tpu.ops.pallas.two_loop_kernel import project
 
-    s, y, g = _inputs(n)
+    s, y, g = _inputs(n, m=m)
     wg_j, gram_j = project(jnp.asarray(s), jnp.asarray(y), jnp.asarray(g),
                            tile_n=512, interpret=True)
     launches = tlk.PROJECT_LAUNCHES
     wg, gram = tlk.project(*_torch_args((s, y, g)))
     assert tlk.PROJECT_LAUNCHES == launches   # CPU tensors: the plain version
-    assert wg.shape == (2 * M,) and gram.shape == (2 * M, 2 * M)
+    assert wg.shape == (2 * m,) and gram.shape == (2 * m, 2 * m)
     assert wg.dtype == gram.dtype == torch.float32
     w = np.concatenate([s, y]).astype(np.float64)
     for got, pallas, exact in ((wg, wg_j, w @ g), (gram, gram_j, w @ w.T)):
@@ -87,15 +96,24 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# m: g as a row of the last row block (1, 5, 10, 14, 23) and as a unit of
+# its own (20, 32), staging warps (1 ... 14, 23, 32) and none (20), one unit
+# group and several (23, 32); n: one column, a tile and one more, under and
+# over a few tiles, and every 16-byte phase of the rows
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 5, 10, 14, 32])   # 14 and 32: split patches
-@pytest.mark.parametrize("n", [700, 1000, 1500, 2048])
+@pytest.mark.parametrize("m", [1, 5, 10, 14, 20, 23, 32])
+@pytest.mark.parametrize("n", [1, 257, 700, 1000, 1500, *range(2001, 2009),
+                               2048])
 def test_kernel_matches_ref_on_cuda(cuda_device, n, m):
+    """Against the plain version, the same bits twice, and a Gram that is
+    exactly symmetric."""
     args = _torch_args(_inputs(n, m=m), cuda_device)
     launches = tlk.PROJECT_LAUNCHES
     wg, gram = tlk.project(*args)
+    wg2, gram2 = tlk.project(*args)
     torch.cuda.synchronize()
-    assert tlk.PROJECT_LAUNCHES == launches + 1
+    assert tlk.PROJECT_LAUNCHES == launches + 2
+    assert torch.equal(wg, wg2) and torch.equal(gram, gram2)
     assert torch.equal(gram, gram.T)
     for got, want in zip((wg, gram), tlk.project_ref(*args)):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
@@ -103,11 +121,12 @@ def test_kernel_matches_ref_on_cuda(cuda_device, n, m):
 
 
 @pytest.mark.cuda
-def test_kernel_at_flagship_n_matches_float64(cuda_device):
+@pytest.mark.parametrize("m", [10, 20])
+def test_kernel_at_flagship_n_matches_float64(cuda_device, m):
     """At n = 292,083 a fixed absolute tolerance does not fit sums of that
     length: the kernel is held against a float64 version within 1e-5 of
     the sum of the terms' magnitudes, and repeats itself bit for bit."""
-    arrays = _inputs(292_083, m=10)
+    arrays = _inputs(292_083, m=m)
     args = _torch_args(arrays, cuda_device)
     wg, gram = tlk.project(*args)
     wg2, gram2 = tlk.project(*args)

@@ -278,6 +278,41 @@ def test_use_pallas_route_matches_plain_and_jax(rng, monkeypatch, with_diag,
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("m,head", [(14, 5), (20, 13)])
+def test_use_pallas_project_route_at_large_m_on_a_wrapped_ring(rng, m, head):
+    """The ``project`` route on a full ring whose oldest pair is row
+    ``head``, at an m whose 2m rows leave room for g in their last block of
+    8 and at one whose rows fill their blocks (the CUDA kernel treats the
+    two apart): the port against its plain route and against the JAX package's Pallas
+    route in interpret mode (float32: rtol 3e-5, atol 1e-4, as above)."""
+    n = 1003
+    # y close to a multiple of s: a well-conditioned H for float32
+    pairs = []
+    for i in range(m):
+        s = rng.standard_normal(n)
+        pairs.append((s, (1.5 + 0.05 * i) * s
+                      + 0.01 * rng.standard_normal(n)))
+    s_mem, y_mem, hd, cnt = _fill_ring(pairs, m, n, head_offset=head)
+    assert (hd, cnt) == (head, m)
+    s, y = s_mem.astype(np.float32), y_mem.astype(np.float32)
+    g = rng.standard_normal(n).astype(np.float32)
+    launches = tlk.PROJECT_LAUNCHES
+    got = two_loop(_t(g), _t(s), _t(y), hd, cnt, use_pallas=True)
+    assert tlk.PROJECT_LAUNCHES == launches    # CPU tensors: the plain version
+    ref = two_loop(_t(g), _t(s), _t(y), hd, cnt)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=3e-5, atol=1e-4)
+    jgot = jax_two_loop(jnp.asarray(g), jnp.asarray(s), jnp.asarray(y), hd,
+                        cnt, use_pallas=True, pallas_interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jgot), rtol=3e-5,
+                               atol=1e-4)
+    # float32 against the float64 oracle on the same (rounded) pairs
+    want = two_loop_np(g.astype(np.float64),
+                       [(a.astype(np.float32).astype(np.float64),
+                         b.astype(np.float32).astype(np.float64))
+                        for a, b in pairs])
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-3, atol=1e-3)
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
 def test_use_pallas_with_other_dtypes_takes_the_plain_route(rng, monkeypatch,
                                                             dtype):
