@@ -81,6 +81,26 @@ Phases (each failure raises and exits non-zero; nothing is caught):
     float64, the function values it asks for against the JAX package's
     float64 run; and in float32 with ``use_pallas=True`` in its config, one
     projection launch per step.
+13. oLBFGS at BibTeX shape (m = 10, eta 1e-2, as
+    ``benchmarks/all_optimizers.py:40-52`` runs it):
+    ``FusedTrainer("oLBFGS")`` for 2 epochs through ``epochs``, from a numpy ``x0`` with no device
+    named, in block layout and with ``pairs_interleaved=True``, under sync
+    debug mode "error".  Checks: the state on the card, no kernel and no
+    plain version launched (no kernel serves oLBFGS), finite ``x``, every
+    info code 200, 10 live pairs, the JAX package's loss (below).  Then
+    both layouts timed in turns, the device's idle share from a profiler
+    trace, and the layers of a step one by one (the gradient, the
+    uncollapsed ``two_loop_cached`` per layout, ``commit_pair`` in block,
+    shift and ring mode with the bytes each commit holds at its peak).
+    Then ``oLBFGS_free`` in a request loop for one epoch: the request
+    order, every ``iteration_info``, the JAX package's loss after one
+    epoch, ``x`` against the fused engine on the same batches.
+14. ``FusedTrainer("SQN")`` with ``pairs_interleaved=True`` at the flagship
+    shape, 2 epochs: one launch per step of the direction kernel the gate
+    chose, on the views ``sy[:m]`` / ``sy[m:]``, and no plain version; the
+    JAX package's loss; ``x`` against the block layout's run; both layouts
+    timed in turns.  Then 3 rounds at ``mem_size=20`` on
+    ``direction_streamed``, with the same launch check and loss.
 
 The last two lines are the kernels' JSON record and the contract line
 ``{"ok": true, "device": {...}}``; the card's ``nvidia-smi`` line is
@@ -103,10 +123,13 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from stochqn_tpu_torch import (AdaQNConfig, FusedTrainer,  # noqa: E402
-                               SQN_free, SQNConfig, adaQN_free)
-from stochqn_tpu_torch.core.state import AdaQNState, BFGSMemory  # noqa: E402
+                               OLBFGSConfig, SQN_free, SQNConfig, adaQN_free,
+                               oLBFGS_free)
+from stochqn_tpu_torch.core.state import (AdaQNState,  # noqa: E402
+                                          BFGSMemory, BFGSMemoryInterleaved,
+                                          SHIFT_MAX_BYTES)
 from stochqn_tpu_torch.fused import (_adaqn_boundary, _flat,  # noqa: E402
-                                     _sqn_boundary)
+                                     _sqn_boundary, olbfgs_step)
 from stochqn_tpu_torch.models import losses  # noqa: E402
 from stochqn_tpu_torch.ops.accumulators import diag_rescal  # noqa: E402
 from stochqn_tpu_torch.ops.kernels import two_loop_kernel as tlk  # noqa: E402
@@ -150,6 +173,28 @@ JAX_FREE_SQN_LOSS_3_ROUNDS = 616_679.375
 # the third boundary is a func_increased rejection.
 FREE_ADAQN_BOUNDARIES = 3
 
+# oLBFGS on the same data, as the JAX package runs it on the CPU
+# (benchmarks/all_optimizers.py:40-52): FusedTrainer("oLBFGS",
+# OLBFGSConfig.create(mem_size=10[, pairs_interleaved=True])).jit_epochs()
+# for 2 epochs at eta = 1e-2 takes the full-data loss from 709,638.8125 to
+# JAX_OLBFGS_LOSS in float32; all 240 info codes are 200 and the memory
+# ends with 10 live pairs.  The same program in float64 (jax_enable_x64,
+# float64 data and x0) ends at JAX_OLBFGS_F64_LOSS in both layouts (they
+# agree to 2e-14).  The float32 runs are 1.8e-4 (block) and 2.8e-4
+# (interleaved) from it, under 0.1%, so float32 is held within LOSS_RTOL
+# of the JAX float32 run of the same layout, as SQN is.  (The two float32
+# layouts part by 1e-3 of max |x| in x, so x is not compared across them.)
+# After one epoch, block, float32: JAX_OLBFGS_LOSS_1_EPOCH.
+JAX_OLBFGS_LOSS = {"block": 109_646.078125, "interleaved": 109_635.265625}
+JAX_OLBFGS_F64_LOSS = 109_665.92084595401
+JAX_OLBFGS_LOSS_1_EPOCH = 544_529.8125
+# FusedTrainer("SQN", SQNConfig.create(mem_size=10, bfgs_upd_freq=20,
+# pairs_interleaved=True)), the same run: 451,613.0 after 2 epochs, as in
+# block layout (JAX_LOSS_2_EPOCHS), every info code 200; its x is within
+# 1.2e-5 of the block run's (max |x| 3.8), inside PARITY_RTOL /
+# PARITY_ATOL.  After 3 rounds (the first 60 batches): 616,679.375 at
+# mem_size 10 and 20 alike (2 live pairs), JAX_FREE_SQN_LOSS_3_ROUNDS.
+
 # The card's peaks for the kernels' bounds: NVIDIA's data sheet for the
 # H100 SXM, device memory rate and float32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -177,6 +222,24 @@ def read_launches():
             "direction": tlk.DIRECTION_LAUNCHES,
             "project": tlk.PROJECT_LAUNCHES,
             "project_adaqn": tlk.PROJECT_ADAQN_LAUNCHES}
+
+
+def spy_plain():
+    """Count the calls of the kernels' plain versions (on the card a call
+    would be a fallback).  Returns the list of calls and a function that
+    puts the plain versions back."""
+    calls = []
+    plain = {name: getattr(tlk, name) for name in
+             ("direction_ref", "direction_streamed_ref", "project_ref",
+              "project_adaqn_ref")}
+    for name, fn in plain.items():
+        setattr(tlk, name, lambda *a, _n=name, _f=fn: (
+            calls.append(_n), _f(*a))[1])
+
+    def restore():
+        for name, fn in plain.items():
+            setattr(tlk, name, fn)
+    return calls, restore
 
 
 def gate_choice(m, n, dev):
@@ -1261,7 +1324,8 @@ def hess_vec_fn(x, v, batch):
 
 class FreeLoop:
     """A request loop on the smoke's batches: minibatch b answers the b-th
-    ``calc_grad``, the round's merged minibatches every boundary request.
+    ``calc_grad`` and the ``calc_grad_same_batch`` after it, the round's
+    merged minibatches every boundary request.
     Points come back from the optimizer as numpy arrays and go to the card;
     gradients, Hessian-vector products and function values are computed
     there and handed over as device tensors."""
@@ -1298,6 +1362,10 @@ class FreeLoop:
             if self.audit is not None:
                 self.audit(self, g)
             self.opt.update_gradient(g)
+        elif task == "calc_grad_same_batch":
+            b = self.b % NUM_BATCHES
+            self.opt.update_gradient(grad_fn(self._at(at),
+                                             (self.X[b], self.Y[b])))
         else:
             r = (self.b % NUM_BATCHES) // UPD_FREQ
             rows = slice(r * UPD_FREQ, (r + 1) * UPD_FREQ)
@@ -1341,14 +1409,7 @@ def free_sqn_phase(dev):
         return float(losses.multinomial_logistic_loss(
             torch.as_tensor(x, device=dev), Xf, Yf, None, REG))
 
-    # a call of a plain version on the card would be a fallback: count them
-    plain_calls = []
-    plain = {name: getattr(tlk, name) for name in
-             ("direction_ref", "direction_streamed_ref", "project_ref",
-              "project_adaqn_ref")}
-    for name, fn in plain.items():
-        setattr(tlk, name, lambda *a, _n=name, _f=fn: (
-            plain_calls.append(_n), _f(*a))[1])
+    plain_calls, restore_plain = spy_plain()
 
     def audit(loop, g):
         """After an accepted commit: the uncached oracle through the
@@ -1497,8 +1558,7 @@ def free_sqn_phase(dev):
           f"mem_size={m20}: loss after 3 rounds {loss20:.4f} vs the JAX "
           f"package's {JAX_FREE_SQN_LOSS_3_ROUNDS}: rel diff {rel:.3e} <= "
           f"{LOSS_RTOL}; 2 live pairs")
-    for name, fn in plain.items():
-        setattr(tlk, name, fn)
+    restore_plain()
     launches["direction_streamed"] = streamed
     return launches, free_ips, max(audits + loop20.audits)
 
@@ -1553,6 +1613,359 @@ def free_adaqn_phase(dev):
                   f"median {statistics.median(ms):.4f} ms over {len(ms)} "
                   "calls", flush=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+def interleaved_committed(n, dev, gen, shift, commits=12, m=MEM_SIZE):
+    """An interleaved memory of m pairs in the given commit mode, filled by
+    the port's own oLBFGS-style commits (no collapsed cache)."""
+    mem = BFGSMemoryInterleaved.create(m, n, shift=shift, device=dev)
+    for _ in range(commits):
+        s = torch.randn(n, device=dev, generator=gen)
+        y = s + 0.3 * torch.randn(n, device=dev, generator=gen)
+        mem, _ = commit_pair(mem.replace(s_pending=s), y, 1e-4, 0.0)
+    return mem
+
+
+def peak_extra_bytes(fn):
+    """Device bytes ``fn()`` holds at its peak beyond what was allocated
+    before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return torch.cuda.max_memory_allocated() - base
+
+
+def olbfgs_phase(dev):
+    phase("13. oLBFGS: FusedTrainer('oLBFGS') at BibTeX shape, 2 epochs, "
+          "block and interleaved; then oLBFGS_free")
+    X, Y, x0 = bench_data(dev)
+    Xf, Yf = X.reshape(-1, N_FEATURES), Y.reshape(-1, N_CLASSES)
+    data = (X, Y)
+    steps = 2 * NUM_BATCHES
+
+    def full_loss(x):
+        return float(losses.multinomial_logistic_loss(
+            torch.as_tensor(x, device=dev), Xf, Yf, None, REG))
+
+    loss0 = full_loss(x0)
+    plain_calls, restore_plain = spy_plain()
+    runs = {}
+    for layout in ("block", "interleaved"):
+        trainer = FusedTrainer("oLBFGS", OLBFGSConfig.create(
+            mem_size=MEM_SIZE, pairs_interleaved=layout == "interleaved"),
+            grad_fn)
+        state = trainer.init(x0.cpu().numpy())     # no device named
+        pairs_buf = state.mem.sy if layout == "interleaved" else state.mem.s
+        check(state.x.device.type == "cuda" and pairs_buf.device.type ==
+              "cuda", f"{layout}: FusedTrainer.init(numpy x0) puts the state "
+              "on the card")
+        if layout == "interleaved":
+            nbytes = state.mem.sy.numel() * 4
+            check(state.mem.shift, f"interleaved: shift mode ({nbytes} bytes "
+                  f"of pairs <= SHIFT_MAX_BYTES = {SHIFT_MAX_BYTES})")
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")     # a host sync inside raises
+        state, infos = trainer.epochs(state, data, STEP, nepochs=2)
+        torch.cuda.set_sync_debug_mode(0)
+        counts = read_launches()
+        check(True, f"{layout}: no host sync inside epochs (sync debug mode "
+              "'error')")
+        torch.cuda.synchronize()
+        print(f"  {layout}: 2 epochs ({steps} steps) in "
+              f"{time.perf_counter() - t0:.3f} s, first call included",
+              flush=True)
+        check(not any(counts.values()) and not plain_calls,
+              f"{layout}: no kernel ({counts}) and no plain version "
+              f"({len(plain_calls)} calls) on the oLBFGS path")
+        infos_l = infos.cpu().flatten().tolist()
+        loss2 = full_loss(state.x)
+        want = JAX_OLBFGS_LOSS[layout]
+        rel = abs(loss2 - want) / want
+        rel64 = abs(loss2 - JAX_OLBFGS_F64_LOSS) / JAX_OLBFGS_F64_LOSS
+        check(bool(torch.isfinite(state.x).all()), f"{layout}: x is finite")
+        check(len(infos_l) == steps and set(infos_l) == {200},
+              f"{layout}: all {steps} info codes are 200")
+        check(int(state.mem.count) == MEM_SIZE,
+              f"{layout}: {MEM_SIZE} live pairs")
+        check(loss2 < loss0, f"{layout}: loss fell: {loss0:.4f} -> "
+              f"{loss2:.4f}")
+        check(rel <= LOSS_RTOL,
+              f"{layout}: loss after 2 epochs {loss2:.4f} vs the JAX "
+              f"package's float32 {want} (CPU): rel diff {rel:.3e} <= "
+              f"{LOSS_RTOL} (vs its float64 {JAX_OLBFGS_F64_LOSS:.5f}: "
+              f"{rel64:.3e})")
+        runs[layout] = [trainer, state]
+
+    # Steady epochs of both layouts in turns, so that both see the same
+    # card and host.
+    rates = {"block": [], "interleaved": []}
+    for layout in ("block", "interleaved", "interleaved", "block", "block",
+                   "interleaved"):
+        trainer, state = runs[layout]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[layout][1], _ = trainer.epochs(state, data, STEP, nepochs=1)
+        torch.cuda.synchronize()
+        rates[layout].append(NUM_BATCHES / (time.perf_counter() - t0))
+    ips = {layout: statistics.median(v) for layout, v in rates.items()}
+    for layout, vals in rates.items():
+        print(f"  {layout}: steady epochs (in turns): "
+              f"{', '.join(f'{v:.1f}' for v in vals)} iters/s; median "
+              f"{ips[layout]:.1f} iters/s", flush=True)
+        check(bool(torch.isfinite(runs[layout][1].x).all()),
+              f"{layout}: x finite after the steady epochs")
+
+    # the device's busy share of an epoch (profiler), beside the wall of
+    # the same epoch without the profiler
+    idle = {}
+    for layout, run in runs.items():
+        def one_epoch(run=run):
+            run[1], _ = run[0].epochs(run[1], data, STEP, nepochs=1)
+        busy = device_busy_ms(one_epoch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_epoch()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        idle[layout] = None if busy is None else 1 - busy / wall
+        print(f"  {layout}: one epoch {wall:.2f} ms of wall, device busy "
+              + ("not measured (the trace shows no device time)"
+                 if busy is None else f"{busy:.2f} ms under the profiler: "
+                 f"idle {100 * idle[layout]:.1f}%"), flush=True)
+
+    layers = olbfgs_layers(dev, X, Y, runs)
+    free = olbfgs_free_run(dev, X, Y, x0, full_loss, plain_calls)
+    restore_plain()
+    return dict(iters_per_s=ips, idle_share=idle, layers=layers, **free)
+
+
+def olbfgs_layers(dev, X, Y, runs):
+    """The layers of one oLBFGS step, each timed alone at device and host
+    ms, and the commit in block, shift and ring mode.  Run after the
+    epochs: the block and ring commits rewrite a row pair of the state's
+    memory in place."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    trainer, state = runs["block"]
+    cfg = trainer.cfg
+    batch = (X[0], Y[0])
+    g = grad_fn(state.x, batch)
+    d = two_loop_cached(g, state.mem, h0=cfg.hess_init)
+    s_cand = -STEP * d
+    y_cand = grad_fn(state.x + s_cand, batch) - g
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    mems = {"block": state.mem, "shift": runs["interleaved"][1].mem,
+            "ring": interleaved_committed(N_FLAGSHIP, dev, gen, shift=False)}
+    check(mems["shift"].shift and not mems["ring"].shift,
+          "interleaved memories in shift and in ring mode")
+
+    def commit(mem):
+        return lambda: commit_pair(mem.replace(s_pending=s_cand), y_cand,
+                                   cfg.min_curvature, cfg.y_reg, enabled=ok)
+    # (fn, calls per timing): few calls of the many-op ones, so that the
+    # queue of pending CUDA kernels does not fill (see device_ms)
+    layers = {
+        "minibatch gradient (two per step)": (
+            lambda: grad_fn(state.x, batch), 20),
+        "two_loop_cached uncollapsed, block": (lambda: two_loop_cached(
+            g, mems["block"], h0=cfg.hess_init), 20),
+        "two_loop_cached uncollapsed, interleaved": (lambda: two_loop_cached(
+            g, mems["shift"], h0=cfg.hess_init), 20),
+        "commit_pair, block": (commit(mems["block"]), 5),
+        "commit_pair, interleaved shift": (commit(mems["shift"]), 5),
+        "commit_pair, interleaved ring (shift=False)": (
+            commit(mems["ring"]), 5),
+        "whole step (olbfgs_step), block": (lambda: olbfgs_step(
+            cfg, grad_fn, state, batch, STEP), 3),
+    }
+    out = {}
+    for name, (fn, iters) in layers.items():
+        out[name] = (device_ms(fn, iters), host_ms(fn, iters))
+        print(f"  layer {name}: device {out[name][0]:.4f} ms, host wall "
+              f"{out[name][1]:.4f} ms", flush=True)
+    pairs_mib = 2 * MEM_SIZE * N_FLAGSHIP * 4 / 2**20
+    for mode in ("block", "shift", "ring"):
+        extra = peak_extra_bytes(commit(mems[mode]))
+        out[f"commit peak extra bytes, {mode}"] = extra
+        print(f"  commit_pair, {mode}: {extra / 2**20:.1f} MiB held at its "
+              f"peak beyond the state (pairs {pairs_mib:.1f} MiB)",
+              flush=True)
+    return out
+
+
+def olbfgs_free_run(dev, X, Y, x0, full_loss, plain_calls):
+    """``oLBFGS_free`` in a request loop for one epoch of the smoke's
+    batches, against the fused engine on the same batches."""
+    opt = oLBFGS_free(mem_size=MEM_SIZE, use_float=True)
+    check(opt.device.type == "cuda", f"oLBFGS_free runs on {opt.device} by "
+          "default")
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop = FreeLoop(opt, X, Y, x0, STEP)
+    loop.run(NUM_BATCHES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    print(f"  oLBFGS_free: 1 epoch ({NUM_BATCHES} steps, {len(loop.tasks)} "
+          f"requests) in {wall:.3f} s, first call included", flush=True)
+    check(loop.tasks == (["calc_grad", "calc_grad_same_batch"] * NUM_BATCHES
+                         + ["calc_grad"]),
+          f"oLBFGS_free request order: calc_grad, calc_grad_same_batch, ... "
+          f"({len(loop.tasks)} requests)")
+    check(set(loop.infos) == {"no_problems_encountered"},
+          f"oLBFGS_free: every iteration_info is no_problems_encountered "
+          f"({len(loop.infos)} calls)")
+    check(not any(counts.values()) and not plain_calls,
+          f"oLBFGS_free: no kernel ({counts}) and no plain version")
+    loss1 = full_loss(loop.x)
+    rel = abs(loss1 - JAX_OLBFGS_LOSS_1_EPOCH) / JAX_OLBFGS_LOSS_1_EPOCH
+    check(rel <= LOSS_RTOL,
+          f"oLBFGS_free: loss after 1 epoch {loss1:.4f} vs the JAX "
+          f"package's {JAX_OLBFGS_LOSS_1_EPOCH} (fused, CPU): rel diff "
+          f"{rel:.3e} <= {LOSS_RTOL}")
+    trainer = FusedTrainer("oLBFGS", OLBFGSConfig.create(mem_size=MEM_SIZE),
+                           grad_fn)
+    fstate, _ = trainer.epochs(trainer.init(x0), (X, Y), STEP, nepochs=1)
+    x_fused = fstate.x.cpu().numpy()
+    err = float(np.max(np.abs(loop.x - x_fused)))
+    check(np.allclose(loop.x, x_fused, rtol=PARITY_RTOL, atol=PARITY_ATOL),
+          f"oLBFGS_free x vs FusedTrainer('oLBFGS') on the same batches: "
+          f"max_abs_err={err:.3e} within rtol={PARITY_RTOL} "
+          f"atol={PARITY_ATOL}")
+    for task, ms in sorted(loop.call_ms.items()):
+        print(f"  oLBFGS_free: run_optimizer answering {task}: host wall "
+              f"median {statistics.median(ms):.4f} ms over {len(ms)} calls",
+              flush=True)
+    t0 = time.perf_counter()
+    loop.run(2 * NUM_BATCHES)
+    torch.cuda.synchronize()
+    free_ips = NUM_BATCHES / (time.perf_counter() - t0)
+    print(f"  oLBFGS_free: steady epoch of the request loop: {free_ips:.1f} "
+          "iters/s", flush=True)
+    return dict(free_iters_per_s=free_ips, free_max_abs_err_vs_fused=err)
+
+
+def sqn_interleaved_phase(dev):
+    phase("14. FusedTrainer('SQN', pairs_interleaved=True) at BibTeX shape, "
+          "2 epochs; then mem_size=20 for 3 rounds")
+    X, Y, x0 = bench_data(dev)
+    Xf, Yf = X.reshape(-1, N_FEATURES), Y.reshape(-1, N_CLASSES)
+    data = (X, Y)
+    steps = 2 * NUM_BATCHES
+
+    def full_loss(x):
+        return float(losses.multinomial_logistic_loss(x, Xf, Yf, None, REG))
+
+    def sqn_trainer(m, interleaved):
+        return FusedTrainer("SQN", SQNConfig.create(
+            mem_size=m, bfgs_upd_freq=UPD_FREQ,
+            pairs_interleaved=interleaved), grad_fn)
+
+    plain_calls, restore_plain = spy_plain()
+    chosen, _ = gate_choice(MEM_SIZE, N_FLAGSHIP, dev)
+    runs, counts = {}, {}
+    for layout in ("interleaved", "block"):
+        trainer = sqn_trainer(MEM_SIZE, layout == "interleaved")
+        state = trainer.init(x0.cpu().numpy())
+        torch.cuda.synchronize()
+        reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        state, infos = trainer.epochs(state, data, STEP, nepochs=2,
+                                      aligned=True)
+        torch.cuda.set_sync_debug_mode(0)
+        counts[layout] = read_launches()
+        runs[layout] = [trainer, state, infos.cpu().flatten().tolist()]
+    trainer, state, infos_l = runs["interleaved"]
+    ilv_counts = dict(counts["interleaved"])
+    launches = ilv_counts.pop(chosen)
+    check(isinstance(state.mem, BFGSMemoryInterleaved) and state.mem.shift
+          and state.mem.sy.device.type == "cuda",
+          "interleaved: the memory is one [2m, n] buffer on the card, shift "
+          "mode")
+    check(launches == steps and not any(ilv_counts.values())
+          and not plain_calls,
+          f"interleaved: {chosen} launched {launches} times for {steps} "
+          f"steps (on sy[:m], sy[m:]); the other kernels {ilv_counts}; no "
+          f"plain version ({len(plain_calls)} calls)")
+    check(counts["block"][chosen] == steps, f"block: {chosen} launched "
+          f"{counts['block'][chosen]} times")
+    loss2 = full_loss(state.x)
+    rel = abs(loss2 - JAX_LOSS_2_EPOCHS) / JAX_LOSS_2_EPOCHS
+    check(bool(torch.isfinite(state.x).all()) and set(infos_l) == {200}
+          and int(state.mem.count) == MEM_SIZE,
+          f"interleaved: x finite, all {len(infos_l)} info codes 200, "
+          f"{MEM_SIZE} live pairs")
+    check(rel <= LOSS_RTOL,
+          f"interleaved: loss after 2 epochs {loss2:.4f} vs the JAX "
+          f"package's interleaved {JAX_LOSS_2_EPOCHS} (CPU): rel diff "
+          f"{rel:.3e} <= {LOSS_RTOL}")
+    x_i, x_b = state.x.cpu().numpy(), runs["block"][1].x.cpu().numpy()
+    err = float(np.max(np.abs(x_i - x_b)))
+    check(np.allclose(x_i, x_b, rtol=PARITY_RTOL, atol=PARITY_ATOL),
+          f"interleaved x vs the block layout's run: max_abs_err={err:.3e} "
+          f"within rtol={PARITY_RTOL} atol={PARITY_ATOL}")
+
+    rates = {"interleaved": [], "block": []}
+    for layout in ("interleaved", "block", "block", "interleaved",
+                   "interleaved", "block"):
+        trainer, state, _ = runs[layout]
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[layout][1], _ = trainer.epochs(state, data, STEP, nepochs=1,
+                                            aligned=True)
+        torch.cuda.synchronize()
+        rates[layout].append(NUM_BATCHES / (time.perf_counter() - t0))
+        check(read_launches()[chosen] == NUM_BATCHES,
+              f"steady {layout} epoch: one {chosen} launch per step")
+    ips = {layout: statistics.median(v) for layout, v in rates.items()}
+    for layout, vals in rates.items():
+        print(f"  {layout}: steady epochs (in turns): "
+              f"{', '.join(f'{v:.1f}' for v in vals)} iters/s; median "
+              f"{ips[layout]:.1f} iters/s", flush=True)
+
+    # mem_size = 20: over the one-read kernel's cap, so direction_streamed
+    m20 = M20
+    check(not tlk.direction_fits(m20, N_FLAGSHIP, dev),
+          f"m={m20}, n={N_FLAGSHIP} is over the one-read kernel's cap")
+    trainer20 = sqn_trainer(m20, True)
+    rounds = (X[:3 * UPD_FREQ], Y[:3 * UPD_FREQ])
+    state20 = trainer20.init(x0)
+    reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    state20, infos20 = trainer20.epochs(state20, rounds, STEP, nepochs=1,
+                                        aligned=True)
+    torch.cuda.set_sync_debug_mode(0)
+    c20 = read_launches()
+    streamed = c20.pop("direction_streamed")
+    check(streamed == 3 * UPD_FREQ and not any(c20.values())
+          and not plain_calls,
+          f"mem_size={m20} interleaved: direction_streamed launched "
+          f"{streamed} times for {3 * UPD_FREQ} steps; the other kernels "
+          f"{c20}; no plain version")
+    loss20 = full_loss(state20.x)
+    rel = abs(loss20 - JAX_FREE_SQN_LOSS_3_ROUNDS) / JAX_FREE_SQN_LOSS_3_ROUNDS
+    check(rel <= LOSS_RTOL and int(state20.mem.count) == 2
+          and set(infos20.flatten().tolist()) == {200},
+          f"mem_size={m20} interleaved: loss after 3 rounds {loss20:.4f} vs "
+          f"the JAX package's {JAX_FREE_SQN_LOSS_3_ROUNDS}: rel diff "
+          f"{rel:.3e} <= {LOSS_RTOL}; 2 live pairs; info codes 200")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state20, _ = trainer20.epochs(state20, rounds, STEP, nepochs=1,
+                                  aligned=True)
+    torch.cuda.synchronize()
+    ips20 = 3 * UPD_FREQ / (time.perf_counter() - t0)
+    print(f"  mem_size={m20} interleaved: 3 more rounds at {ips20:.1f} "
+          "iters/s", flush=True)
+    restore_plain()
+    return ({chosen: launches}, streamed, ips, ips20)
 
 
 def check_no_spills(report):
@@ -1629,16 +2042,25 @@ def main():
     direction_max_abs, direction_timing = direction_kernel_phase(dev)
     free_launches, free_ips, audit_err = free_sqn_phase(dev)
     free_adaqn_launches = free_adaqn_phase(dev)
+    olbfgs = olbfgs_phase(dev)
+    ilv_launches, ilv_m20_launches, ilv_ips, ilv_m20_ips = \
+        sqn_interleaved_phase(dev)
 
     # launches: the counts of the paths driven above (fused SQN, fused adaQN,
-    # free-mode SQN at m = 10 and m = 20, free-mode adaQN), each read after
-    # a path that began with every count at 0
+    # free-mode SQN at m = 10 and m = 20, free-mode adaQN, fused SQN
+    # interleaved at m = 10 and m = 20), each read after a path that began
+    # with every count at 0; the oLBFGS paths launch no kernel
     by_path = {
         "direction": {"fused_sqn": sqn_launches.get("direction", 0),
-                      "free_sqn": free_launches.get("direction", 0)},
+                      "free_sqn": free_launches.get("direction", 0),
+                      "fused_sqn_interleaved":
+                          ilv_launches.get("direction", 0)},
         "direction_streamed": {
             "fused_sqn": sqn_launches.get("direction_streamed", 0),
-            "free_sqn": free_launches.get("direction_streamed", 0)},
+            "free_sqn": free_launches.get("direction_streamed", 0),
+            "fused_sqn_interleaved":
+                ilv_launches.get("direction_streamed", 0),
+            "fused_sqn_interleaved_m20": ilv_m20_launches},
         "project": {"free_sqn_oracle_audits": free_launches["project"],
                     "free_sqn_m20_oracle_audits":
                         free_launches["project_m20"]},
@@ -1648,6 +2070,10 @@ def main():
     for name, paths in by_path.items():
         check(sum(paths.values()) > 0,
               f"{name} was launched on a driven path: {paths}")
+    print(f"  oLBFGS (no kernel): fused iters/s block "
+          f"{olbfgs['iters_per_s']['block']:.1f}, interleaved "
+          f"{olbfgs['iters_per_s']['interleaved']:.1f}; oLBFGS_free "
+          f"{olbfgs['free_iters_per_s']:.1f}", flush=True)
     f32 = timing["float32"]
     src = "stochqn_tpu_torch/csrc/"
     tpu = "stochqn_tpu/ops/pallas/two_loop_kernel.py:"
@@ -1661,7 +2087,8 @@ def main():
     print(json.dumps({"kernels": [
         entry("direction_streamed", 309, max_abs, f32,
               direction_bound(MEM_SIZE, N_FLAGSHIP), bf16=timing["bfloat16"],
-              m20=timing["m20"], iters_per_s=streamed_ips),
+              m20=timing["m20"], iters_per_s=streamed_ips,
+              interleaved_m20_iters_per_s=ilv_m20_ips),
         entry("project_adaqn", 390, adaqn_max_abs, adaqn_timing,
               project_adaqn_bound(MEM_SIZE, N_FLAGSHIP),
               worst_err_share_of_f64_bound=adaqn_share,
@@ -1675,7 +2102,9 @@ def main():
             "ms": None, "plain_ms": None, "library_ms": None},
             direction_bound(MEM_SIZE, N_FLAGSHIP),
             iters_per_s=ips if "direction" in sqn_launches else None,
-            free_mode_iters_per_s=free_ips),
+            free_mode_iters_per_s=free_ips,
+            interleaved_iters_per_s=ilv_ips["interleaved"],
+            block_iters_per_s_in_turns_with_interleaved=ilv_ips["block"]),
     ]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -16,21 +16,26 @@ hand-written Hopper kernel (``csrc/project_adaqn.cu``) and
 ``core/protocol.py``, ``core/sqn.advance``, ``core/adaqn.advance`` and the
 request-loop classes ``SQN_free`` / ``adaQN_free``, with the uncached
 oracles ``two_loop`` / ``two_loop_sequential`` and the last two kernels
-(``csrc/project.cu``, ``csrc/direction.cu``).  ROADMAP.md lists what comes
-next.
+(``csrc/project.cu``, ``csrc/direction.cu``); and oLBFGS in every mode:
+``OLBFGSConfig``, ``OLBFGSState``, ``core/olbfgs``, ``oLBFGS_free`` and
+``FusedTrainer("oLBFGS")`` on the uncollapsed cached two-loop, with the
+interleaved pair layout (``BFGSMemoryInterleaved``, shift and ring
+commits) for oLBFGS and SQN, whose collapsed direction takes the same two
+kernels on the interleaved buffer.  ROADMAP.md lists what comes next.
 """
-from stochqn_tpu_torch.convert import (adaqn_state_from_numpy,
-                                       adaqn_state_to_numpy,
-                                       fisher_memory_from_numpy,
-                                       fisher_memory_to_numpy,
-                                       sqn_state_from_numpy,
-                                       sqn_state_to_numpy)
-from stochqn_tpu_torch.core.config import AdaQNConfig, SQNConfig
+from stochqn_tpu_torch.convert import (
+    adaqn_state_from_numpy, adaqn_state_to_numpy,
+    bfgs_memory_interleaved_from_numpy, bfgs_memory_interleaved_to_numpy,
+    fisher_memory_from_numpy, fisher_memory_to_numpy,
+    olbfgs_state_from_numpy, olbfgs_state_to_numpy, sqn_state_from_numpy,
+    sqn_state_to_numpy)
+from stochqn_tpu_torch.core.config import AdaQNConfig, OLBFGSConfig, SQNConfig
 from stochqn_tpu_torch.core.enums import Info, Task
 from stochqn_tpu_torch.core.protocol import AdvanceResult
 from stochqn_tpu_torch.core.state import (AdaQNState, BFGSMemory,
-                                          FisherMemory, SQNState)
-from stochqn_tpu_torch.free import SQN_free, adaQN_free
+                                          BFGSMemoryInterleaved,
+                                          FisherMemory, OLBFGSState, SQNState)
+from stochqn_tpu_torch.free import SQN_free, adaQN_free, oLBFGS_free
 from stochqn_tpu_torch.fused import FusedTrainer, batchify
 from stochqn_tpu_torch.models import losses
 from stochqn_tpu_torch.ops.kernels.two_loop_kernel import (
@@ -43,9 +48,10 @@ from stochqn_tpu_torch.ops.two_loop import (two_loop, two_loop_cached,
 
 __all__ = [
     "Task", "Info",
-    "SQNConfig", "AdaQNConfig",
-    "BFGSMemory", "SQNState", "FisherMemory", "AdaQNState",
-    "AdvanceResult", "SQN_free", "adaQN_free",
+    "OLBFGSConfig", "SQNConfig", "AdaQNConfig",
+    "BFGSMemory", "BFGSMemoryInterleaved", "OLBFGSState", "SQNState",
+    "FisherMemory", "AdaQNState",
+    "AdvanceResult", "oLBFGS_free", "SQN_free", "adaQN_free",
     "FusedTrainer", "batchify",
     "losses",
     "commit_pair", "conditional_flush", "direction_is_bad", "fisher_y",
@@ -53,7 +59,9 @@ __all__ = [
     "direction", "direction_ref",
     "direction_streamed", "direction_streamed_ref",
     "project", "project_ref", "project_adaqn", "project_adaqn_ref",
+    "olbfgs_state_from_numpy", "olbfgs_state_to_numpy",
     "sqn_state_from_numpy", "sqn_state_to_numpy",
+    "bfgs_memory_interleaved_from_numpy", "bfgs_memory_interleaved_to_numpy",
     "adaqn_state_from_numpy", "adaqn_state_to_numpy",
     "fisher_memory_from_numpy", "fisher_memory_to_numpy",
 ]

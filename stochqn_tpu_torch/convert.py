@@ -1,13 +1,15 @@
-"""Move SQN and adaQN state between the JAX package and this one, as
-numpy arrays.
+"""Move optimizer state between the JAX package and this one, as numpy
+arrays.
 
 ``sqn_state_from_numpy`` takes a JAX ``SQNState`` pulled out field by
 field (``mem`` as a nested dict) and builds this package's
 :class:`~stochqn_tpu_torch.core.state.SQNState`; ``sqn_state_to_numpy``
-goes back.  ``adaqn_state_{from,to}_numpy`` do the same for
-``AdaQNState`` (``mem`` and ``fisher`` nested), and carry the Fisher
-ring's static append mode ``shift`` as a bool.  Both sides then compute
-the same thing from the same state.
+goes back.  ``olbfgs_state_{from,to}_numpy`` do the same for
+``OLBFGSState`` and ``adaqn_state_{from,to}_numpy`` for ``AdaQNState``
+(``mem`` and ``fisher`` nested).  A ``mem`` dict with an ``sy`` entry is
+an interleaved memory (``bfgs_memory_interleaved_{from,to}_numpy``); it
+and the Fisher ring carry their static mode ``shift`` as a bool.  Both
+sides then compute the same thing from the same state.
 
 The JAX package keeps ``head``/``count``/``perm``/``niter``/``section`` in
 ``int32``; here they are ``int64`` (torch indexes with ``int64``), and the
@@ -21,7 +23,8 @@ import numpy as np
 import torch
 
 from stochqn_tpu_torch.core.state import (AdaQNState, BFGSMemory,
-                                          FisherMemory, SQNState)
+                                          BFGSMemoryInterleaved, FisherMemory,
+                                          OLBFGSState, SQNState)
 
 _INT_FIELDS = frozenset({"head", "count", "perm", "niter", "section"})
 
@@ -48,19 +51,66 @@ def bfgs_memory_to_numpy(mem: BFGSMemory) -> dict:
             for f in dataclasses.fields(BFGSMemory)}
 
 
+def bfgs_memory_interleaved_from_numpy(d: dict, device=None
+                                       ) -> BFGSMemoryInterleaved:
+    return BFGSMemoryInterleaved(
+        shift=bool(d["shift"]),
+        **{f.name: _tensor(f.name, d[f.name], device)
+           for f in dataclasses.fields(BFGSMemoryInterleaved)
+           if f.name != "shift"})
+
+
+def bfgs_memory_interleaved_to_numpy(mem: BFGSMemoryInterleaved) -> dict:
+    out = {f.name: _array(f.name, getattr(mem, f.name))
+           for f in dataclasses.fields(BFGSMemoryInterleaved)
+           if f.name != "shift"}
+    out["shift"] = bool(mem.shift)
+    return out
+
+
+def _mem_from_numpy(d: dict, device):
+    """Either layout, told apart by the interleaved buffer ``sy``."""
+    return (bfgs_memory_interleaved_from_numpy(d, device) if "sy" in d
+            else bfgs_memory_from_numpy(d, device))
+
+
+def _mem_to_numpy(mem) -> dict:
+    return (bfgs_memory_interleaved_to_numpy(mem)
+            if isinstance(mem, BFGSMemoryInterleaved)
+            else bfgs_memory_to_numpy(mem))
+
+
+def _state_from_numpy(cls, d: dict, device):
+    fields = {f.name: _tensor(f.name, d[f.name], device)
+              for f in dataclasses.fields(cls) if f.name != "mem"}
+    return cls(mem=_mem_from_numpy(d["mem"], device), **fields)
+
+
+def _state_to_numpy(state) -> dict:
+    out = {f.name: _array(f.name, getattr(state, f.name))
+           for f in dataclasses.fields(state) if f.name != "mem"}
+    out["mem"] = _mem_to_numpy(state.mem)
+    return out
+
+
+def olbfgs_state_from_numpy(d: dict, device=None) -> OLBFGSState:
+    """``d``: the JAX state's fields as numpy arrays, ``d["mem"]`` a dict
+    of the memory's fields (either layout)."""
+    return _state_from_numpy(OLBFGSState, d, device)
+
+
+def olbfgs_state_to_numpy(state: OLBFGSState) -> dict:
+    return _state_to_numpy(state)
+
+
 def sqn_state_from_numpy(d: dict, device=None) -> SQNState:
     """``d``: the JAX state's fields as numpy arrays, ``d["mem"]`` a dict
-    of the ``BFGSMemory`` fields."""
-    fields = {f.name: _tensor(f.name, d[f.name], device)
-              for f in dataclasses.fields(SQNState) if f.name != "mem"}
-    return SQNState(mem=bfgs_memory_from_numpy(d["mem"], device), **fields)
+    of the memory's fields (either layout)."""
+    return _state_from_numpy(SQNState, d, device)
 
 
 def sqn_state_to_numpy(state: SQNState) -> dict:
-    out = {f.name: _array(f.name, getattr(state, f.name))
-           for f in dataclasses.fields(SQNState) if f.name != "mem"}
-    out["mem"] = bfgs_memory_to_numpy(state.mem)
-    return out
+    return _state_to_numpy(state)
 
 
 def fisher_memory_from_numpy(d: dict, device=None) -> FisherMemory:

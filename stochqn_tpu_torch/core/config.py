@@ -1,5 +1,5 @@
-"""Static hyperparameter records (the SQN and adaQN parts of
-:mod:`stochqn_tpu.core.config`).
+"""Static hyperparameter records for the three optimizers
+(:mod:`stochqn_tpu.core.config`).
 
 Defaults and validation match the JAX package, which follows the reference
 Python free-mode constructor (``stochqn/_optimizers.py:1091-1092``) and its
@@ -29,15 +29,59 @@ def _norm(value: Optional[float], name: str, positive: bool = True) -> float:
 
 
 @dataclasses.dataclass(frozen=True)
+class OLBFGSConfig:
+    """oLBFGS hyperparameters (Schraudolph et al., 2007).
+
+    Reference: ``initialize_oLBFGS`` at ``src/stochqn.c:464-481`` and the
+    Python wrapper ``oLBFGS_free`` at ``stochqn/_optimizers.py:929-973``.
+
+    ``pairs_interleaved`` stores the pair memory as one ``[2m, n]`` buffer
+    with rows ``[s_0, y_0, s_1, y_1, ...]``
+    (:class:`~stochqn_tpu_torch.core.state.BFGSMemoryInterleaved`); it
+    takes the same steps as the block layout to float tolerance.
+    ``pairs_bf16`` is kept so that a config means the same in both
+    packages; this package does not build such state yet
+    (``core.olbfgs.init`` raises).
+    """
+
+    mem_size: int = 10
+    hess_init: float = 0.0       # 0 -> gamma = s.y/y.y of the latest pair
+    min_curvature: float = 1e-4  # 0 -> accept every pair
+    y_reg: float = 0.0           # y += y_reg * s
+    check_nan: bool = True
+    pairs_bf16: bool = False
+    pairs_interleaved: bool = False
+
+    # oLBFGS produces one correction pair per iteration.
+    upd_freq: int = 1
+
+    @classmethod
+    def create(cls, mem_size=10, hess_init=None, min_curvature=1e-4,
+               y_reg=None, check_nan=True, pairs_bf16=False,
+               pairs_interleaved=False) -> "OLBFGSConfig":
+        if mem_size <= 0:
+            raise ValueError("'mem_size' must be a positive integer")
+        return cls(
+            mem_size=int(mem_size),
+            hess_init=_norm(hess_init, "hess_init"),
+            min_curvature=_norm(min_curvature, "min_curvature"),
+            y_reg=_norm(y_reg, "y_reg"),
+            check_nan=bool(check_nan),
+            pairs_bf16=bool(pairs_bf16),
+            pairs_interleaved=bool(pairs_interleaved),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
 class SQNConfig:
     """SQN hyperparameters (Byrd et al., 2016).
 
     Reference: ``initialize_SQN`` at ``src/stochqn.c:483-506`` and
     ``SQN_free`` at ``stochqn/_optimizers.py:1048-1097``.
 
-    ``pairs_bf16`` and ``pairs_interleaved`` are kept so that a config
-    means the same in both packages; this package does not build such
-    state yet (``core.sqn.init`` raises).
+    ``pairs_interleaved``: see :class:`OLBFGSConfig`.  ``pairs_bf16`` is
+    kept so that a config means the same in both packages; this package
+    does not build such state yet (``core.sqn.init`` raises).
     """
 
     mem_size: int = 10

@@ -48,19 +48,17 @@ from stochqn_tpu_torch.ops.pairs import (commit_pair, conditional_flush,
                                          direction_is_bad)
 from stochqn_tpu_torch.ops.two_loop import two_loop_cached
 
+
 def init(x0: torch.Tensor, cfg: SQNConfig) -> SQNState:
     if cfg.pairs_bf16:
         raise NotImplementedError(
             "bfloat16 pair state is not ported yet (ROADMAP A.13, slice 5)")
-    if cfg.pairs_interleaved:
-        raise NotImplementedError(
-            "the interleaved pair layout is not ported yet "
-            "(ROADMAP A.11, slice 3)")
     if x0.dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(
             f"SQN state is float32 or float64, got {x0.dtype} "
             "(bfloat16 state is ROADMAP A.13, slice 5)")
-    return SQNState.create(x0, cfg.mem_size)
+    return SQNState.create(x0, cfg.mem_size,
+                           pairs_interleaved=cfg.pairs_interleaved)
 
 
 def step(cfg: SQNConfig, state: SQNState, grad: torch.Tensor,

@@ -1,8 +1,8 @@
 """Optimizer state: dataclasses of tensors.
 
-Counterpart of :mod:`stochqn_tpu.core.state` (block-layout
-:class:`BFGSMemory`, :class:`SQNState`, :class:`FisherMemory` and
-:class:`AdaQNState`).  Field names, shapes and
+Counterpart of :mod:`stochqn_tpu.core.state` (:class:`BFGSMemory`,
+:class:`BFGSMemoryInterleaved`, :class:`OLBFGSState`, :class:`SQNState`,
+:class:`FisherMemory` and :class:`AdaQNState`).  Field names, shapes and
 meanings are the same; the differences are PyTorch idiom:
 
 * integer scalars and the permutation (``head``, ``count``, ``perm``,
@@ -11,7 +11,8 @@ meanings are the same; the differences are PyTorch idiom:
   :mod:`stochqn_tpu_torch.convert` casts between the two);
 * every tensor lives on the device the state was created on, and nothing
   moves it;
-* the ring rows ``s``/``y`` are updated in place by
+* the ring rows ``s``/``y`` (and an interleaved memory's ``sy`` in ring
+  mode) are updated in place by
   :func:`stochqn_tpu_torch.ops.pairs.commit_pair`, so a memory passed to a
   commit is consumed (see there); so is the Fisher ring row written by
   :meth:`FisherMemory.append` in ring mode.
@@ -29,6 +30,34 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+
+def _empty_cache(m: int, n: int, dtype, device) -> dict:
+    """Every field of an empty pair memory but the pair rows: one buffer
+    per field."""
+    gram_t = torch.promote_types(dtype, torch.float32)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=gram_t, device=device)
+
+    def scalar_i64():
+        return torch.zeros((), dtype=torch.int64, device=device)
+
+    return dict(
+        gram=zeros(2 * m, 2 * m),
+        s_pending=torch.zeros(n, dtype=dtype, device=device),
+        head=scalar_i64(),
+        count=scalar_i64(),
+        perm=torch.arange(m, dtype=torch.int64, device=device),
+        rho=zeros(m),
+        bwd_inv=torch.eye(m, dtype=gram_t, device=device),
+        fwd_inv=torch.eye(m, dtype=gram_t, device=device),
+        yy_c=zeros(m, m),
+        rl_c=zeros(m, m),
+        gamma=torch.ones((), dtype=gram_t, device=device),
+        c0=zeros(2 * m, 2 * m),
+        cg=zeros(2 * m, 2 * m),
+    )
 
 
 @dataclasses.dataclass
@@ -69,39 +98,135 @@ class BFGSMemory:
     @classmethod
     def create(cls, mem_size: int, n: int, dtype=torch.float32,
                storage_dtype=None, device=None) -> "BFGSMemory":
-        gram_t = torch.promote_types(dtype, torch.float32)
-        m = mem_size
         st_t = dtype if storage_dtype is None else storage_dtype
-
-        def zeros(*shape, dt=gram_t):
-            return torch.zeros(shape, dtype=dt, device=device)
-
-        def scalar_i64():
-            return torch.zeros((), dtype=torch.int64, device=device)
-
-        return cls(
-            s=zeros(m, n, dt=st_t),
-            y=zeros(m, n, dt=st_t),
-            gram=zeros(2 * m, 2 * m),
-            s_pending=zeros(n, dt=dtype),
-            head=scalar_i64(),
-            count=scalar_i64(),
-            perm=torch.arange(m, dtype=torch.int64, device=device),
-            rho=zeros(m),
-            bwd_inv=torch.eye(m, dtype=gram_t, device=device),
-            fwd_inv=torch.eye(m, dtype=gram_t, device=device),
-            yy_c=zeros(m, m),
-            rl_c=zeros(m, m),
-            gamma=torch.ones((), dtype=gram_t, device=device),
-            c0=zeros(2 * m, 2 * m),
-            cg=zeros(2 * m, 2 * m),
-        )
+        return cls(s=torch.zeros((mem_size, n), dtype=st_t, device=device),
+                   y=torch.zeros((mem_size, n), dtype=st_t, device=device),
+                   **_empty_cache(mem_size, n, dtype, device))
 
     @property
     def mem_size(self) -> int:
         return self.s.shape[0]
 
+    def flush(self) -> "BFGSMemory":
+        """Logically empty the memory (data stays, indices reset):
+        ``flush_bfgs_mem``, ``src/stochqn.c:554-558``."""
+        return self.replace(head=torch.zeros_like(self.head),
+                            count=torch.zeros_like(self.count))
+
     def replace(self, **changes) -> "BFGSMemory":
+        return dataclasses.replace(self, **changes)
+
+
+# Above this pair-buffer size an interleaved memory commits in ring mode
+# (one [2, n] row pair written in place) instead of rebuilding the buffer
+# newest pair first: the rebuild holds the old and the new buffer at once.
+# The JAX package's value, kept so that a converted state commits the same
+# way; see PERF.md for the two modes' commit times on the card.
+SHIFT_MAX_BYTES = 4 * 1024 ** 3
+
+
+@dataclasses.dataclass
+class BFGSMemoryInterleaved:
+    """:class:`BFGSMemory` with the pair rows interleaved in one buffer:
+    ``sy[2i] = s_i``, ``sy[2i + 1] = y_i``, so that ``sy`` is ``W`` in
+    interleaved row order and the direction reads one ``[2m, n]`` buffer.
+
+    ``shift`` (fixed at :meth:`create` by :data:`SHIFT_MAX_BYTES`, or
+    forced) selects the commit: shift mode rebuilds the buffer as
+    ``[new pair; sy[:-2]]`` (newest pair at rows 0-1, ``head`` always 0,
+    chronology positional); ring mode writes the pair's two rows at
+    ``2 * head`` in place, as the block layout does.
+
+    ``gram``, ``c0`` and ``cg`` are in interleaved row order; the
+    chronological cache (``perm``, ``rho``, the inverses, ``yy_c``,
+    ``rl_c``, ``gamma``) is the block layout's.  ``s`` / ``y`` are strided
+    views of ``sy``, for reading only.  Not for adaQN (a diagonal H0 reads
+    the ``y`` rows apart on every step).
+    """
+
+    sy: torch.Tensor         # [2m, n]: rows [s_0, y_0, s_1, y_1, ...]
+    gram: torch.Tensor       # [2m, 2m] cached W W^T, interleaved order
+    s_pending: torch.Tensor  # [n]
+    head: torch.Tensor       # int64 scalar
+    count: torch.Tensor      # int64 scalar
+    perm: torch.Tensor       # chronological cache, as in BFGSMemory
+    rho: torch.Tensor
+    bwd_inv: torch.Tensor
+    fwd_inv: torch.Tensor
+    yy_c: torch.Tensor
+    rl_c: torch.Tensor
+    gamma: torch.Tensor
+    c0: torch.Tensor         # [2m, 2m], interleaved order
+    cg: torch.Tensor         # [2m, 2m], interleaved order
+    shift: bool = True       # commit mode, see the class docstring
+
+    @classmethod
+    def create(cls, mem_size: int, n: int, dtype=torch.float32,
+               storage_dtype=None, shift=None, device=None
+               ) -> "BFGSMemoryInterleaved":
+        sy = torch.zeros((2 * mem_size, n), device=device,
+                         dtype=dtype if storage_dtype is None
+                         else storage_dtype)
+        if shift is None:
+            shift = sy.numel() * sy.element_size() <= SHIFT_MAX_BYTES
+        return cls(sy=sy, shift=bool(shift),
+                   **_empty_cache(mem_size, n, dtype, device))
+
+    @property
+    def mem_size(self) -> int:
+        return self.sy.shape[0] // 2
+
+    @property
+    def s(self) -> torch.Tensor:
+        """Storage-order ``s`` rows (a strided view of ``sy``)."""
+        return self.sy[0::2]
+
+    @property
+    def y(self) -> torch.Tensor:
+        return self.sy[1::2]
+
+    def flush(self) -> "BFGSMemoryInterleaved":
+        return self.replace(head=torch.zeros_like(self.head),
+                            count=torch.zeros_like(self.count))
+
+    def replace(self, **changes) -> "BFGSMemoryInterleaved":
+        return dataclasses.replace(self, **changes)
+
+
+def make_bfgs_memory(mem_size: int, n: int, dtype=torch.float32,
+                     storage_dtype=None, interleaved: bool = False,
+                     device=None):
+    cls = BFGSMemoryInterleaved if interleaved else BFGSMemory
+    return cls.create(mem_size, n, dtype, storage_dtype, device=device)
+
+
+@dataclasses.dataclass
+class OLBFGSState:
+    """Full oLBFGS optimizer state (``workspace_oLBFGS``,
+    ``include/stochqn.h:109-120``)."""
+
+    x: torch.Tensor          # [n] current iterate
+    mem: BFGSMemory          # or BFGSMemoryInterleaved
+    grad_prev: torch.Tensor  # [n]
+    niter: torch.Tensor      # int64 scalar
+    section: torch.Tensor    # int64 scalar: resume point (0, 1, 2)
+
+    @classmethod
+    def create(cls, x0: torch.Tensor, mem_size: int,
+               pairs_interleaved: bool = False) -> "OLBFGSState":
+        x0 = x0.detach().clone()          # owned: never the caller's buffer
+        n = x0.shape[0]
+        dev = x0.device
+        return cls(
+            x=x0,
+            mem=make_bfgs_memory(mem_size, n, x0.dtype,
+                                 interleaved=pairs_interleaved, device=dev),
+            grad_prev=torch.zeros(n, dtype=x0.dtype, device=dev),
+            niter=torch.zeros((), dtype=torch.int64, device=dev),
+            section=torch.zeros((), dtype=torch.int64, device=dev),
+        )
+
+    def replace(self, **changes) -> "OLBFGSState":
         return dataclasses.replace(self, **changes)
 
 
@@ -115,7 +240,7 @@ class SQNState:
     """
 
     x: torch.Tensor
-    mem: BFGSMemory
+    mem: BFGSMemory           # or BFGSMemoryInterleaved
     grad_prev: torch.Tensor   # [n] big-batch gradient at previous average
     x_sum: torch.Tensor       # [n] sum (or, post-division, average) of iterates
     x_avg_prev: torch.Tensor  # [n]
@@ -123,7 +248,8 @@ class SQNState:
     section: torch.Tensor     # int64 scalar (0..4)
 
     @classmethod
-    def create(cls, x0: torch.Tensor, mem_size: int) -> "SQNState":
+    def create(cls, x0: torch.Tensor, mem_size: int,
+               pairs_interleaved: bool = False) -> "SQNState":
         x0 = x0.detach().clone()          # owned: never the caller's buffer
         n = x0.shape[0]
         dev = x0.device
@@ -133,7 +259,8 @@ class SQNState:
 
         return cls(
             x=x0,
-            mem=BFGSMemory.create(mem_size, n, x0.dtype, device=dev),
+            mem=make_bfgs_memory(mem_size, n, x0.dtype,
+                                 interleaved=pairs_interleaved, device=dev),
             grad_prev=zeros_n(),
             x_sum=zeros_n(),
             x_avg_prev=zeros_n(),

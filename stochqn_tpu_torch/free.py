@@ -1,9 +1,8 @@
 """Free-mode optimizer API: the reference's request/response protocol.
 
-Counterpart of the ``SQN_free`` / ``adaQN_free`` part of
-:mod:`stochqn_tpu.free`, drop-in equivalents of the reference's classes
-(``stochqn/_optimizers.py:1048-1364``): the user owns the evaluation loop,
-the optimizer answers every call with a request dict
+Counterpart of :mod:`stochqn_tpu.free`, drop-in equivalents of the
+reference's classes (``stochqn/_optimizers.py:929-1364``): the user owns
+the evaluation loop, the optimizer answers every call with a request dict
 
     {"task": str,
      "requested_on": array | (array, array),
@@ -15,12 +14,14 @@ identical in schema and task ordering to the reference
 (``stochqn/_optimizers.py:1004-1016``).
 
 Each call runs one ``advance`` transition
-(``stochqn_tpu_torch.core.{sqn,adaqn}``) on a state that lives on
+(``stochqn_tpu_torch.core.{olbfgs,sqn,adaqn}``) on a state that lives on
 ``device``: the card by default (no CUDA device: the constructor raises;
 pass ``device="cpu"`` for the CPU).  ``requested_on`` comes back as numpy
 arrays, as in the JAX package; ``update_gradient``, ``update_hess_vec`` and
-``update_function`` take numpy arrays or torch tensors, and a tensor that
-already has the optimizer's dtype and device is used where it is.
+``update_function`` take numpy arrays or torch tensors.  A numpy array is
+copied, so the caller may refill it before the next ``run_optimizer``; a
+tensor that already has the optimizer's dtype and device is used where it
+is.
 
 Host reads per ``run_optimizer`` call: ``advance`` reads the state's
 section and iteration number (one read), the wrapper reads the result
@@ -32,7 +33,7 @@ verdict.  For loops that never wait for the host use
 
 ``use_float=False`` selects float64, like the reference; ``use_float=True``
 float32, the dtype the hand-written kernels take (float64 runs the same
-math in plain torch).  ``oLBFGS_free`` is not ported yet (ROADMAP A.11).
+math in plain torch).
 """
 from __future__ import annotations
 
@@ -41,8 +42,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from stochqn_tpu_torch.core import adaqn, sqn
-from stochqn_tpu_torch.core.config import AdaQNConfig, SQNConfig
+from stochqn_tpu_torch.core import adaqn, olbfgs, sqn
+from stochqn_tpu_torch.core.config import AdaQNConfig, OLBFGSConfig, SQNConfig
 from stochqn_tpu_torch.core.enums import INFO_NAMES, TASK_NAMES, Info, Task
 from stochqn_tpu_torch.core.protocol import host_ints, resolve_device
 
@@ -85,9 +86,13 @@ class _StochQNFree:
     def _vector(self, value, what: str) -> torch.Tensor:
         """``value`` as a flat tensor of the optimizer's dtype on its
         device, with the reference's length check
-        (``stochqn/_optimizers.py:917-927``)."""
-        arr = torch.as_tensor(value, dtype=self.dtype,
-                              device=self.device).reshape(-1)
+        (``stochqn/_optimizers.py:917-927``).  Anything but a tensor is
+        copied: ``torch.as_tensor`` would share a numpy array's memory on
+        the CPU."""
+        convert = (torch.as_tensor if isinstance(value, torch.Tensor)
+                   else torch.tensor)
+        arr = convert(value, dtype=self.dtype,
+                      device=self.device).reshape(-1)
         if self._n is not None and arr.shape[0] != self._n:
             raise ValueError(
                 f"{what} has {arr.shape[0]} elements, expected {self._n}")
@@ -176,6 +181,35 @@ class _StochQNFree:
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
+
+
+class oLBFGS_free(_StochQNFree):
+    """oLBFGS in free mode.  Request order (reference docstring,
+    ``stochqn/_optimizers.py:938-943``)::
+
+        ==== loop ====
+        * calc_grad
+        * calc_grad_same_batch   (may be skipped after a rejected direction)
+        ==============
+    """
+
+    _init_fn = staticmethod(olbfgs.init)
+    _advance_fn = staticmethod(olbfgs.advance)
+
+    def __init__(self, mem_size=10, hess_init=None, min_curvature=1e-4,
+                 y_reg=None, check_nan=True, nthreads=-1, use_float=False,
+                 dtype=None, device=None, backend="torch", pairs_bf16=False,
+                 pairs_interleaved=False):
+        super().__init__(device, backend)
+        del nthreads
+        self.dtype = _resolve_dtype(use_float, dtype)
+        self._cfg = OLBFGSConfig.create(
+            mem_size=mem_size, hess_init=hess_init,
+            min_curvature=min_curvature, y_reg=y_reg, check_nan=check_nan,
+            pairs_bf16=pairs_bf16, pairs_interleaved=pairs_interleaved)
+
+    def _requested_on(self, task: Task, section: int):
+        return None          # every request is at x
 
 
 class SQN_free(_StochQNFree):

@@ -1,8 +1,11 @@
-"""Fused SQN and adaQN training engine.
+"""Fused training engine for the three optimizers.
 
-Counterpart of the SQN and adaQN parts of :mod:`stochqn_tpu.fused`.  An
-epoch runs as rounds of ``upd_freq`` (L) branch-free base steps followed
-once per round by the boundary:
+Counterpart of :mod:`stochqn_tpu.fused` (its default paths: no paired
+gradients, no generic per-step layout).  An oLBFGS epoch is one
+:func:`olbfgs_step` per minibatch: two same-batch gradients, the
+uncollapsed two-loop direction, guard, update and a pair commit every
+step.  An SQN or adaQN epoch runs as rounds of ``upd_freq`` (L)
+branch-free base steps followed once per round by the boundary:
 
 * SQN: minibatch gradient, collapsed two-loop direction (the hand-written
   direction kernel on CUDA), NaN / magnitude guard, ``x`` / ``x_sum``
@@ -21,14 +24,15 @@ first-round decision is a device-side ``torch.where``: nothing in
 the host, so the loop never waits for the device.
 
 The state is updated in place where that saves copying the pair memory:
-the boundary commit rewrites one ring row of ``mem.s`` / ``mem.y``
-(``ops.pairs.commit_pair``), and a ring-mode Fisher append one row of
-``fisher.f``.  A state passed to :meth:`FusedTrainer.round`,
-:meth:`~FusedTrainer.epoch` or :meth:`~FusedTrainer.epochs` is therefore
-consumed; use the returned one.
+a commit rewrites one ring row pair of ``mem.s`` / ``mem.y`` (or of an
+interleaved ring-mode ``mem.sy``; ``ops.pairs.commit_pair``), and a
+ring-mode Fisher append one row of ``fisher.f``.  A state passed to
+:meth:`FusedTrainer.round`, :meth:`~FusedTrainer.epoch` or
+:meth:`~FusedTrainer.epochs` is therefore consumed, as the JAX package's
+with ``donate=True``; use the returned one.
 
-Batches are tensors or (nested) tuples / lists of tensors with a leading
-example axis, and epoch data has leaves ``[B, bs, ...]``.
+Batches are tensors or (nested) tuples, lists or dicts of tensors with a
+leading example axis, and epoch data has leaves ``[B, bs, ...]``.
 """
 from __future__ import annotations
 
@@ -37,13 +41,13 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
-from stochqn_tpu_torch.core import adaqn, sqn
-from stochqn_tpu_torch.core.config import AdaQNConfig, SQNConfig
+from stochqn_tpu_torch.core import adaqn, olbfgs, sqn
+from stochqn_tpu_torch.core.config import AdaQNConfig, OLBFGSConfig, SQNConfig
 from stochqn_tpu_torch.core.enums import Info
 from stochqn_tpu_torch.core.protocol import (commit_info, no_bad,
                                              resolve_device, scalar_like,
                                              step_info)
-from stochqn_tpu_torch.core.state import AdaQNState, SQNState
+from stochqn_tpu_torch.core.state import AdaQNState, OLBFGSState, SQNState
 from stochqn_tpu_torch.models.losses import hvp_from_grad
 from stochqn_tpu_torch.ops.pairs import (commit_pair, conditional_flush,
                                          fisher_y)
@@ -64,11 +68,16 @@ def _tree_map(fn, batch):
         return fn(batch)
     if isinstance(batch, (tuple, list)):
         return type(batch)(_tree_map(fn, v) for v in batch)
+    if isinstance(batch, dict):
+        return type(batch)((k, _tree_map(fn, v)) for k, v in batch.items())
     raise TypeError(f"batch leaves must be tensors, got {type(batch)}")
 
 
 def _first_leaf(batch) -> torch.Tensor:
-    return batch if isinstance(batch, torch.Tensor) else _first_leaf(batch[0])
+    if isinstance(batch, torch.Tensor):
+        return batch
+    return _first_leaf(next(iter(batch.values())) if isinstance(batch, dict)
+                       else batch[0])
 
 
 def _flat(batch):
@@ -80,6 +89,27 @@ def _flat(batch):
         a = a.transpose(0, 1)
         return a.reshape((-1,) + tuple(a.shape[2:]))
     return _tree_map(merge, batch)
+
+
+def olbfgs_step(cfg: OLBFGSConfig, grad_fn: GradFn, state: OLBFGSState,
+                batch: Batch, step_size: torch.Tensor
+                ) -> Tuple[OLBFGSState, torch.Tensor]:
+    """One full oLBFGS iteration: protocol sections 1 and 2 of
+    ``run_oLBFGS`` (``src/stochqn.c:991-1031``) with two same-batch
+    gradients.  Returns ``(state, info)``; nothing is read on the host.
+
+    After a bad direction (memory flushed, ``x`` kept) the commit is
+    vetoed.  ``grad_prev`` and ``s_pending`` are dead across fused steps
+    (the pair is built within the step) and stay as they came in, as in
+    the JAX package."""
+    g = grad_fn(state.x, batch)
+    st, bad = olbfgs.step(cfg, state, g, step_size)
+    g2 = grad_fn(st.x, batch)              # same batch, new x
+    mem, accepted = commit_pair(st.mem, g2 - g, cfg.min_curvature, cfg.y_reg,
+                                enabled=torch.logical_not(bad))
+    st = st.replace(mem=mem.replace(s_pending=state.mem.s_pending),
+                    section=torch.ones_like(state.section))
+    return st, commit_info(accepted | bad, step_info(bad))
 
 
 def _sqn_base(cfg: SQNConfig, grad_fn: GradFn, state: SQNState,
@@ -203,11 +233,12 @@ def _adaqn_boundary(cfg: AdaQNConfig, grad_fn: GradFn,
 
 @dataclasses.dataclass
 class FusedTrainer:
-    """Round-chunked fused trainer (SQN and adaQN so far).
+    """Fused trainer for any of the three optimizers.
 
     Args:
-      optimizer: "SQN" or "adaQN" (oLBFGS is ROADMAP A.11).
-      cfg: the matching :class:`SQNConfig` or :class:`AdaQNConfig`.
+      optimizer: "oLBFGS", "SQN" or "adaQN".
+      cfg: the matching :class:`OLBFGSConfig`, :class:`SQNConfig` or
+        :class:`AdaQNConfig`.
       grad_fn: ``grad_fn(x, batch) -> [n]``.
       obj_fn: ``obj_fn(x, batch) -> scalar`` tensor; required for adaQN
         with ``max_incr``.
@@ -228,10 +259,8 @@ class FusedTrainer:
 
     def __post_init__(self):
         kind = self.optimizer
-        if kind == "oLBFGS":
-            raise NotImplementedError(
-                "oLBFGS is not ported yet (ROADMAP A.11, slice 3)")
-        cfg_cls = {"SQN": SQNConfig, "adaQN": AdaQNConfig}.get(kind)
+        cfg_cls = {"oLBFGS": OLBFGSConfig, "SQN": SQNConfig,
+                   "adaQN": AdaQNConfig}.get(kind)
         if cfg_cls is None:
             raise ValueError(f"unknown optimizer {kind!r}")
         if not isinstance(self.cfg, cfg_cls):
@@ -251,7 +280,8 @@ class FusedTrainer:
         if not isinstance(x0, torch.Tensor):
             device = resolve_device(
                 device, "FusedTrainer.init with an x0 that is no tensor")
-        init = sqn.init if self.optimizer == "SQN" else adaqn.init
+        init = {"oLBFGS": olbfgs.init, "SQN": sqn.init,
+                "adaQN": adaqn.init}[self.optimizer]
         return init(torch.as_tensor(x0, device=device), self.cfg)
 
     def round(self, state, round_data, step_size
@@ -259,9 +289,18 @@ class FusedTrainer:
         """One ``upd_freq``-sized round: L branch-free base steps, then the
         boundary once.  ``round_data`` leaves are ``[L, bs, ...]``; the
         round must start with ``niter % upd_freq == 0``.  Returns
-        ``(state, infos[L])`` (int32)."""
+        ``(state, infos[L])`` (int32).  oLBFGS has no boundary: a round is
+        one :func:`olbfgs_step` per minibatch, of any count."""
         L = _first_leaf(round_data).shape[0]
         eta = scalar_like(step_size, state.x)
+        if self.optimizer == "oLBFGS":
+            infos = []
+            for i in range(L):
+                state, info = olbfgs_step(
+                    self.cfg, self.grad_fn, state,
+                    _tree_map(lambda a: a[i], round_data), eta)
+                infos.append(info)
+            return state, torch.stack(infos)
         base = _sqn_base if self.optimizer == "SQN" else _adaqn_base
         bads = []
         for i in range(L):
@@ -302,7 +341,10 @@ class FusedTrainer:
         asserts the latter without reading ``niter``; ``None`` reads it
         once (a host sync).  Other layouts need the generic per-step
         path, which is not ported yet (ROADMAP A.10, slice 2): they
-        raise."""
+        raise.  An oLBFGS epoch has no boundary, so any ``B`` and any
+        ``niter`` will do and ``aligned`` is ignored."""
+        if self.optimizer == "oLBFGS":
+            return self.round(state, data, step_size)
         num_batches = _first_leaf(data).shape[0]
         L = self.cfg.upd_freq
         if num_batches % L != 0 or aligned is False:
@@ -326,10 +368,10 @@ class FusedTrainer:
 
         Alignment is resolved once, before the first epoch (see
         :meth:`epoch`); with ``aligned=True`` no device value is read on
-        the host."""
+        the host (nor with oLBFGS, whose epochs are all aligned)."""
         steps = torch.broadcast_to(scalar_like(step_size, state.x),
                                    (nepochs,))
-        if aligned is None:
+        if aligned is None and self.optimizer != "oLBFGS":
             L = self.cfg.upd_freq
             aligned = int(state.niter) % L == 0
         infos = []

@@ -1,10 +1,17 @@
-"""Correction-pair validity checks and ring-buffer commits (block layout).
+"""Correction-pair validity checks and pair-memory commits.
 
 Counterpart of :mod:`stochqn_tpu.ops.pairs`: ``take_step``'s NaN/magnitude
 guard (``src/stochqn.c:825-835``), ``check_min_curvature``
 (``src/stochqn.c:883-900``), the commit with its incremental Gram and
-small-math cache, and adaQN's empirical-Fisher ``y``.  Everything stays on the device: accept/reject is a
-tensor, selected with ``torch.where``, never read on the host.
+small-math cache, and adaQN's empirical-Fisher ``y``.  Everything stays on
+the device: accept/reject is a tensor, selected with ``torch.where``,
+never read on the host.
+
+Two row orders of ``W`` are in play, chosen by the memory's class: block
+order ``[s_0 .. s_{m-1}, y_0 .. y_{m-1}]`` (:class:`BFGSMemory`) and
+interleaved order ``[s_0, y_0, s_1, y_1, ...]``
+(:class:`BFGSMemoryInterleaved`).  ``gram``, ``c0`` and ``cg`` follow the
+memory's order; strided slices convert between the two.
 """
 from __future__ import annotations
 
@@ -12,7 +19,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from stochqn_tpu_torch.core.state import BFGSMemory, FisherMemory
+from stochqn_tpu_torch.core.state import (BFGSMemory, BFGSMemoryInterleaved,
+                                          FisherMemory)
 from stochqn_tpu_torch.ops.two_loop import _chrono_perm, _mem_mm
 
 
@@ -45,17 +53,20 @@ def commit_pair(mem: BFGSMemory, y_cand: torch.Tensor, min_curvature: float,
                 y_reg: float, enabled: Optional[torch.Tensor] = None,
                 direction_cache: bool = False
                 ) -> Tuple[BFGSMemory, torch.Tensor]:
-    """Try to commit ``(mem.s_pending, y_cand [+ y_reg * s])`` into the ring.
+    """Try to commit ``(mem.s_pending, y_cand [+ y_reg * s])`` into the
+    memory (either layout).
 
     Accept iff ``s.y / s.s > min_curvature`` (always when
     ``min_curvature <= 0``); a 0/0 ratio is NaN and rejects.  ``enabled``
     (bool tensor) vetoes the commit.  Returns ``(new_mem, accepted)``.
 
-    In place: the row at ``head`` of ``mem.s`` / ``mem.y`` is rewritten
-    with ``index_copy_`` — with the candidate on accept, with its own
-    contents on reject (the JAX package's copy-free reject,
-    ``pairs.py:94-96``).  ``new_mem`` shares those buffers, so ``mem`` is
-    consumed: read only ``new_mem`` afterwards.
+    Block layout and interleaved ring mode write in place: the pair's rows
+    at ``head`` are rewritten with ``index_copy_``, with the candidate on
+    accept and with their own contents on reject (the JAX package's
+    copy-free reject, ``pairs.py:94-96``).  ``new_mem`` shares those
+    buffers, so ``mem`` is consumed: read only ``new_mem`` afterwards.
+    Interleaved shift mode builds a new buffer ``[new pair; sy[:-2]]``,
+    selected on the device by ``accepted``, and leaves ``head`` at 0.
     """
     s = mem.s_pending
     if y_reg > 0:
@@ -73,52 +84,90 @@ def commit_pair(mem: BFGSMemory, y_cand: torch.Tensor, min_curvature: float,
 
     size = mem.mem_size
     gram_t = mem.gram.dtype
-    st_t = mem.s.dtype
-    head = mem.head.reshape(1)
-    row_s = torch.where(accepted, s.to(st_t), mem.s.index_select(0, head)[0])
-    row_y = torch.where(accepted, y_cand.to(st_t),
-                        mem.y.index_select(0, head)[0])
-    mem.s.index_copy_(0, head, row_s[None])
-    mem.y.index_copy_(0, head, row_y[None])
+    interleaved = isinstance(mem, BFGSMemoryInterleaved)
+    shift = interleaved and mem.shift
+    if shift:
+        st_t = mem.sy.dtype
+        slab = torch.stack([s.to(st_t), y_cand.to(st_t)])
+        new_sy = torch.where(accepted, torch.cat([slab, mem.sy[:-2]]), mem.sy)
+        # the Gram moves down-right with the rows; the new pair's row and
+        # column come from one pass over the new buffer
+        p = _gram_cols(new_sy, slab[0], slab[1], gram_t).to(gram_t)  # [2m, 2]
+        g_shift = torch.zeros_like(mem.gram)
+        g_shift[2:, 2:] = mem.gram[:-2, :-2]
+        g_shift[:, 0:2] = p
+        g_shift[0:2, :] = p.T
+        gram = torch.where(accepted, g_shift, mem.gram)
+        buffers = dict(sy=new_sy)
+        new_head = mem.head
+    else:
+        if interleaved:            # ring mode: rows 2 head, 2 head + 1
+            idx = 2 * mem.head + torch.arange(2, device=mem.head.device)
+            cur_s, cur_y = mem.sy.index_select(0, idx)
+        else:
+            head = mem.head.reshape(1)
+            idx = torch.cat([head, head + size])
+            cur_s = mem.s.index_select(0, head)[0]
+            cur_y = mem.y.index_select(0, head)[0]
+        row_s = torch.where(accepted, s.to(cur_s.dtype), cur_s)
+        row_y = torch.where(accepted, y_cand.to(cur_y.dtype), cur_y)
+        if interleaved:
+            w = mem.sy.index_copy_(0, idx, torch.stack([row_s, row_y]))
+        else:
+            mem.s.index_copy_(0, head, row_s[None])
+            mem.y.index_copy_(0, head, row_y[None])
+            w = torch.cat([mem.s, mem.y], dim=0)
+        buffers = {}
+        # Incremental Gram: the rows and columns of W W^T touched by the
+        # written pair (on reject, the same entries recomputed).  Columns
+        # first, then rows, as in the JAX package.
+        p = _gram_cols(w, row_s, row_y, gram_t).to(gram_t)         # [2m, 2]
+        gram = mem.gram.clone()
+        gram.index_copy_(1, idx, p)
+        gram.index_copy_(0, idx, p.T.contiguous())
+        new_head = torch.where(accepted, torch.remainder(mem.head + 1, size),
+                               mem.head)
 
-    # Incremental Gram: the row and column of W W^T touched by the written
-    # pair (on reject, the same entries recomputed).  Columns first, then
-    # rows, as in the JAX package.
-    p = _gram_cols(torch.cat([mem.s, mem.y], dim=0), row_s, row_y,
-                   gram_t).to(gram_t)                           # [2m, 2]
-    idx = torch.cat([head, head + size])
-    gram = mem.gram.clone()
-    gram.index_copy_(1, idx, p)
-    gram.index_copy_(0, idx, p.T.contiguous())
-
-    new_head = torch.where(accepted, torch.remainder(mem.head + 1, size),
-                           mem.head)
     new_count = torch.where(accepted, torch.clamp(mem.count + 1, max=size),
                             mem.count)
     cache = _small_cache(gram, new_head, new_count, size,
-                         direction_cache=direction_cache)
+                         direction_cache=direction_cache,
+                         interleaved=interleaved, shift=shift)
     return mem.replace(gram=gram, head=new_head, count=new_count,
-                       **cache), accepted
+                       **buffers, **cache), accepted
 
 
 def _small_cache(gram: torch.Tensor, head: torch.Tensor, count: torch.Tensor,
-                 mem_size: int, direction_cache: bool = False) -> dict:
+                 mem_size: int, direction_cache: bool = False,
+                 interleaved: bool = False, shift: bool = False) -> dict:
     """Commit-time precomputation of the gradient-independent two-loop
-    math (block order): chronological permutation, rho, the inverted
-    backward/forward triangular systems, chronological ``Y Y^T``, the
-    forward coupling, default gamma and, with ``direction_cache``, the
-    collapsed ``c0``/``cg``.
+    math: chronological permutation, rho, the inverted backward/forward
+    triangular systems, chronological ``Y Y^T``, the forward coupling,
+    default gamma and, with ``direction_cache``, the collapsed
+    ``c0``/``cg``.  ``gram`` and the returned ``c0``/``cg`` are in
+    interleaved row order where ``interleaved``; the chronological outputs
+    are the same in both layouts.  ``shift``: the newest pair is storage
+    slot 0.
     """
     m = mem_size
     acc_t = gram.dtype
     dev = gram.device
     cidx = torch.arange(m, dtype=torch.int64, device=dev)
-    perm = _chrono_perm(m, head, count)
+    if shift:
+        # the c-th oldest of `count` live pairs sits at slot count-1-c
+        # (invalid c land on in-range slots, masked through rho)
+        perm = torch.remainder(count - 1 - cidx, m)
+    else:
+        perm = _chrono_perm(m, head, count)
     valid = cidx < count
     validf = valid.to(acc_t)
 
-    sy = gram[:m, m:][perm][:, perm]
-    yy = gram[m:, m:][perm][:, perm]
+    if interleaved:
+        sy = gram[0::2, 1::2][perm][:, perm]
+        yy = gram[1::2, 1::2][perm][:, perm]
+    else:
+        sy = gram[:m, m:][perm][:, perm]
+        yy = gram[m:, m:][perm][:, perm]
     sy_diag = torch.diagonal(sy)
     rho = validf / torch.where(valid, sy_diag, torch.ones_like(sy_diag))
 
@@ -152,9 +201,9 @@ def _small_cache(gram: torch.Tensor, head: torch.Tensor, count: torch.Tensor,
     out = dict(perm=perm, rho=rho, bwd_inv=bwd_inv, fwd_inv=fwd_inv,
                yy_c=yy_m, rl_c=rl, gamma=gamma)
 
+    zero_2m = torch.zeros((2 * m, 2 * m), dtype=acc_t, device=dev)
     if not direction_cache:
-        out["c0"] = torch.zeros((2 * m, 2 * m), dtype=acc_t, device=dev)
-        out["cg"] = torch.zeros((2 * m, 2 * m), dtype=acc_t, device=dev)
+        out["c0"], out["cg"] = zero_2m, zero_2m.clone()
         return out
 
     # Collapse the gamma-scaled two-loop into u = C @ (W g) with
@@ -169,11 +218,15 @@ def _small_cache(gram: torch.Tensor, head: torch.Tensor, count: torch.Tensor,
     cg_sy = -(p_mat.T @ (fwd_inv @ drho_p))
     cg_ys = -(p_mat.T @ a1)
 
-    zero_m = torch.zeros((m, m), dtype=acc_t, device=dev)
-    out["c0"] = torch.cat([torch.cat([c0_ss, zero_m], dim=1),
-                           torch.cat([zero_m, zero_m], dim=1)], dim=0)
-    out["cg"] = torch.cat([torch.cat([cg_ss, cg_sy], dim=1),
-                           torch.cat([cg_ys, zero_m], dim=1)], dim=0)
+    # the s rows of W are [0, m) in block order, the even rows interleaved
+    s_rows = slice(0, 2 * m, 2) if interleaved else slice(0, m)
+    y_rows = slice(1, 2 * m, 2) if interleaved else slice(m, 2 * m)
+    c0, cg = zero_2m, zero_2m.clone()
+    c0[s_rows, s_rows] = c0_ss
+    cg[s_rows, s_rows] = cg_ss
+    cg[s_rows, y_rows] = cg_sy
+    cg[y_rows, s_rows] = cg_ys
+    out["c0"], out["cg"] = c0, cg
     return out
 
 

@@ -1,19 +1,24 @@
-"""L-BFGS two-loop recursion (block layout): the commit-time cached form
-the optimizers run, and the uncached oracles it is audited against.
+"""L-BFGS two-loop recursion: the commit-time cached form the optimizers
+run, and the uncached oracles it is audited against.
 
-Counterpart of :mod:`stochqn_tpu.ops.two_loop`.  Two branches of
-:func:`two_loop_cached` are ported:
+Counterpart of :mod:`stochqn_tpu.ops.two_loop`.  :func:`two_loop_cached`
+has three branches, each for either pair layout (block ``W = [s; y]`` or
+interleaved ``W = sy``, both ``[2m, n]``; adaQN's is block only):
 
 * SQN's collapsed scalar-H0 form: with the cache of
   :func:`stochqn_tpu_torch.ops.pairs.commit_pair` (``direction_cache=True``)
   the whole gamma-scaled two-loop is
 
-      d = gamma*g + W^T ((c0 + gamma*cg) @ (W g)),   W = [s; y]  ([2m, n])
+      d = gamma*g + W^T ((c0 + gamma*cg) @ (W g))
 
   computed by a hand-written direction kernel for a float32 gradient
   (``direction``, one read of ``W``, where the pairs are float32 and fit
   the card's shared memory; else ``direction_streamed``), and by the same
-  three products in plain torch for any other dtype;
+  three products in plain torch for any other dtype.  An interleaved
+  memory hands the kernels its two halves ``sy[:m]`` and ``sy[m:]``
+  (views, no copy) with ``c0``/``cg`` in the same row order;
+* oLBFGS's uncollapsed scalar-H0 form, in plain torch: project ``W g``,
+  three m-sized products, expand;
 * adaQN's diagonal-H0 form, with the ``matvec`` or ``gram`` coupling in
   plain torch, or (``use_pallas=True``) with ``W g``, ``(Y*D) g`` and
   ``(Y*D) Y^T`` from the hand-written projection kernel.
@@ -24,9 +29,7 @@ no cache (``use_pallas=True``: ``W g`` and ``W W^T`` from the hand-written
 loop of the reference C code.
 
 The kernels are in :mod:`stochqn_tpu_torch.ops.kernels.two_loop_kernel`;
-the selects around them are plain torch and stay on the device.  The
-scalar-H0 uncollapsed cached branch and the interleaved layout raise
-``NotImplementedError`` naming the ROADMAP slice that brings them.
+the selects around them are plain torch and stay on the device.
 """
 from __future__ import annotations
 
@@ -92,9 +95,17 @@ def two_loop_cached(grad: torch.Tensor, mem, *, h0: float = 0.0,
     versions; any other dtype (float64, bfloat16 state) takes the same
     three products in plain torch on either device.
 
-    Diagonal H0 (``diag [n]``, adaQN; ``collapsed`` is ignored, as in the
-    JAX package): project ``W g``, three m-sized solves, expand.  The
-    coupling term ``YD g - YD Y^T alpha`` is
+    Scalar H0, ``collapsed=False``: oLBFGS's per-step direction (its
+    commits build no ``c0``/``cg``), ``W g`` as two products over ``s`` and
+    ``y`` in block layout (no ``[2m, n]`` copy) or one over ``sy``, three
+    m-sized products, and one expansion per layout: ``gamma (g - Y^T
+    alpha) + S^T (alpha - beta)`` in block layout, ``gamma g + W^T u``
+    with ``u[2i] = alpha - beta``, ``u[2i + 1] = -gamma alpha`` (storage
+    order) interleaved.
+
+    Diagonal H0 (``diag [n]``, adaQN, block layout; ``collapsed`` is
+    ignored, as in the JAX package): project ``W g``, three m-sized
+    solves, expand.  The coupling term ``YD g - YD Y^T alpha`` is
 
     * ``coupling="matvec"``: ``Y @ (D (g - Y^T alpha))``, two matvecs;
     * ``coupling="gram"``: ``(Y*D) g - ((Y*D) Y^T) alpha``;
@@ -108,38 +119,23 @@ def two_loop_cached(grad: torch.Tensor, mem, *, h0: float = 0.0,
     if coupling not in ("matvec", "gram"):
         raise ValueError(f"coupling must be 'matvec' or 'gram', "
                          f"got {coupling!r}")
-    if hasattr(mem, "sy"):
-        if diag is not None:
-            raise ValueError(
-                "pairs_interleaved does not support a diagonal H0 (adaQN)")
-        raise NotImplementedError(
-            "the interleaved pair layout is not ported yet "
-            "(ROADMAP A.11, slice 3)")
+    interleaved = hasattr(mem, "sy")
+    if interleaved and diag is not None:
+        raise ValueError(
+            "pairs_interleaved does not support a diagonal H0 (adaQN)")
     dtype = grad.dtype
     acc_t = mem.bwd_inv.dtype
     has_pairs = mem.count > 0
     g_acc = grad.to(acc_t)
 
     if diag is None:
-        if not collapsed:
-            raise NotImplementedError(
-                "the scalar-H0 uncollapsed cached two-loop is not ported "
-                "yet; it comes with oLBFGS (ROADMAP A.11, slice 3)")
         gamma = (torch.full((), h0, dtype=acc_t, device=grad.device)
                  if h0 > 0 else mem.gamma)
         gamma = torch.where(has_pairs, gamma, torch.ones_like(gamma))
-        c = mem.c0 + gamma * mem.cg
-        if dtype == torch.float32 and acc_t == torch.float32 and (
-                mem.s.dtype in (torch.float32, torch.bfloat16)):
-            m, n = mem.s.shape
-            one_read = (mem.s.dtype == torch.float32
-                        and direction_fits(m, n, grad.device))
-            kernel = direction if one_read else direction_streamed
-            d = kernel(mem.s, mem.y, grad, c, gamma)
+        if collapsed:
+            d = _collapsed(grad, mem, gamma, interleaved)
         else:
-            w = torch.cat([mem.s, mem.y], dim=0)
-            u = c @ _mem_mm(w, grad, acc_t)
-            d = gamma * g_acc + _mem_mm(u, w, acc_t)
+            d = _uncollapsed(grad, mem, gamma, interleaved)
         return torch.where(has_pairs, d, g_acc).to(dtype)
 
     s_mem, y_mem = mem.s, mem.y
@@ -177,6 +173,57 @@ def two_loop_cached(grad: torch.Tensor, mem, *, h0: float = 0.0,
                          acc_t)
     d = u2 + st_coeff_s
     return torch.where(has_pairs, d, diag_acc * g_acc).to(dtype)
+
+
+def _collapsed(grad: torch.Tensor, mem, gamma: torch.Tensor,
+               interleaved: bool) -> torch.Tensor:
+    """``gamma g + W^T ((c0 + gamma cg) (W g))`` in the memory's row
+    order, through a direction kernel for a float32 gradient."""
+    acc_t = mem.bwd_inv.dtype
+    c = mem.c0 + gamma * mem.cg
+    if interleaved:
+        m = mem.mem_size
+        first, second = mem.sy[:m], mem.sy[m:]    # W = [first; second]
+    else:
+        first, second = mem.s, mem.y
+    if grad.dtype == torch.float32 and acc_t == torch.float32 and (
+            first.dtype in (torch.float32, torch.bfloat16)):
+        m, n = first.shape
+        one_read = (first.dtype == torch.float32
+                    and direction_fits(m, n, grad.device))
+        kernel = direction if one_read else direction_streamed
+        return kernel(first, second, grad, c, gamma)
+    w = mem.sy if interleaved else torch.cat([first, second], dim=0)
+    u = c @ _mem_mm(w, grad, acc_t)
+    return gamma * grad.to(acc_t) + _mem_mm(u, w, acc_t)
+
+
+def _uncollapsed(grad: torch.Tensor, mem, gamma: torch.Tensor,
+                 interleaved: bool) -> torch.Tensor:
+    """The scalar-H0 two-loop from the chronological cache: ``W g``, the
+    backward and forward m-sized products, the expansion."""
+    acc_t = mem.bwd_inv.dtype
+    perm = mem.perm
+    g_acc = grad.to(acc_t)
+    if interleaved:
+        wg = _mem_mm(mem.sy, grad, acc_t)
+        sg, yg = wg[0::2][perm], wg[1::2][perm]
+    else:
+        sg = _mem_mm(mem.s, grad, acc_t)[perm]
+        yg = _mem_mm(mem.y, grad, acc_t)[perm]
+    alpha = mem.bwd_inv @ (mem.rho * sg)
+    y_r0 = gamma * (yg - mem.yy_c @ alpha)
+    beta = mem.fwd_inv @ (mem.rho * y_r0 + mem.rl_c @ alpha)
+    if interleaved:
+        # invalid chronological slots carry exact zeros (rho masking)
+        u = torch.zeros(2 * perm.shape[0], dtype=acc_t, device=grad.device)
+        u.index_copy_(0, 2 * perm, alpha - beta)
+        u.index_copy_(0, 2 * perm + 1, -gamma * alpha)
+        return gamma * g_acc + _mem_mm(u, mem.sy, acc_t)
+    st_alpha_y = _mem_mm(_to_storage_order(alpha, perm), mem.y, acc_t)
+    st_coeff_s = _mem_mm(_to_storage_order(alpha - beta, perm), mem.s,
+                         acc_t)
+    return gamma * (g_acc - st_alpha_y) + st_coeff_s
 
 
 def _scalar_i64(value, device) -> torch.Tensor:

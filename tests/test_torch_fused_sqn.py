@@ -25,8 +25,8 @@ from stochqn_tpu.core.config import SQNConfig as JaxConfig  # noqa: E402
 from stochqn_tpu.fused import FusedTrainer as JaxTrainer  # noqa: E402
 from stochqn_tpu.models import losses as jl  # noqa: E402
 from stochqn_tpu_torch import (AdaQNConfig, FusedTrainer,  # noqa: E402
-                               Info, SQNConfig, sqn_state_from_numpy,
-                               sqn_state_to_numpy)
+                               Info, OLBFGSConfig, SQNConfig,
+                               sqn_state_from_numpy, sqn_state_to_numpy)
 from stochqn_tpu_torch.models import losses as tl  # noqa: E402
 
 F, C, BS, B, M, L, REG, ETA = 12, 5, 4, 8, 3, 4, 0.1, 0.05
@@ -209,10 +209,11 @@ def test_unaligned_layouts_raise():
 
 @pytest.mark.parametrize("optimizer", ["oLBFGS", "adaQN"])
 def test_unported_optimizers_raise(optimizer):
-    """oLBFGS is not ported yet; adaQN is, but not its bfloat16 state."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """oLBFGS and adaQN are ported, but not their bfloat16 state."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
         if optimizer == "oLBFGS":
-            FusedTrainer(optimizer, SQNConfig(), _torch_grad)
+            FusedTrainer(optimizer, OLBFGSConfig.create(pairs_bf16=True),
+                         _torch_grad).init(torch.zeros(3))
         else:
             FusedTrainer(optimizer, AdaQNConfig.create(
                 max_incr=None, fisher_bf16=True), _torch_grad).init(

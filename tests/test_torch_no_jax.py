@@ -9,13 +9,17 @@ CHECK = """
 import sys
 import stochqn_tpu_torch
 from stochqn_tpu_torch import convert, free, fused
-from stochqn_tpu_torch.core import adaqn, protocol, sqn
+from stochqn_tpu_torch.core import adaqn, olbfgs, protocol, sqn
 from stochqn_tpu_torch.ops import two_loop
 from stochqn_tpu_torch.ops.kernels import two_loop_kernel
-for name in ("SQN_free", "adaQN_free", "AdvanceResult", "two_loop",
+for name in ("oLBFGS_free", "SQN_free", "adaQN_free", "AdvanceResult",
+             "OLBFGSConfig", "OLBFGSState", "BFGSMemoryInterleaved", "two_loop",
              "two_loop_sequential", "direction", "project"):
     assert hasattr(stochqn_tpu_torch, name), name
 assert callable(sqn.advance) and callable(adaqn.advance)
+assert callable(olbfgs.advance) and callable(fused.olbfgs_step)
+free.oLBFGS_free(device="cpu", pairs_interleaved=True).run_optimizer(
+    [0.0, 1.0], 0.1)
 free.SQN_free(device="cpu").run_optimizer([0.0, 1.0], 0.1)
 free.adaQN_free(device="cpu").run_optimizer([0.0, 1.0], 0.1)
 loaded = {m.split('.')[0] for m in sys.modules}

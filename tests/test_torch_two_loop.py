@@ -1,5 +1,7 @@
 """The torch port's cached two-loop against the JAX package: SQN's
-collapsed scalar-H0 branch and adaQN's diagonal-H0 branches.
+collapsed scalar-H0 branch, oLBFGS's uncollapsed one and adaQN's
+diagonal-H0 branches (the interleaved layout and oLBFGS's branch in more
+cases: ``tests/test_torch_interleaved.py``, ``tests/test_torch_olbfgs.py``).
 
 The pair memory is built by the JAX package's own commits and carried
 across with ``convert``, so this isolates the direction.  On the CPU the
@@ -91,11 +93,14 @@ def test_chrono_perm_matches_jax(head, count):
 @pytest.mark.parametrize("kwargs", [dict(collapsed=False),
                                     dict(collapsed=False, h0=0.5)])
 def test_unported_branches_raise(kwargs):
-    """The scalar-H0 uncollapsed branch comes with oLBFGS; a diagonal H0
-    is ported (below)."""
-    mem = _to_torch(_jax_mem(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        two_loop_cached(torch.zeros(N), mem, **kwargs)
+    """The scalar-H0 uncollapsed branch, the last to be ported (with
+    oLBFGS), no longer raises: it matches the JAX package's on a memory
+    committed without the collapsed cache, as oLBFGS commits."""
+    jmem = _jax_mem(2, direction_cache=False)
+    g = np.random.default_rng(4).standard_normal(N).astype(np.float32)
+    want = np.asarray(jax_two_loop(jnp.asarray(g), jmem, **kwargs))
+    got = two_loop_cached(torch.from_numpy(g), _to_torch(jmem), **kwargs)
+    np.testing.assert_allclose(got.numpy(), want, rtol=3e-5, atol=1e-5)
 
 
 def _diag(signed, seed=5):
