@@ -101,6 +101,30 @@ Phases (each failure raises and exits non-zero; nothing is caught):
     JAX package's loss; ``x`` against the block layout's run; both layouts
     timed in turns.  Then 3 rounds at ``mem_size=20`` on
     ``direction_streamed``, with the same launch check and loss.
+15. The generic per-step layout at the flagship shape: fused SQN for 2
+    epochs with ``aligned=False`` (one host read, ``niter``) against the
+    chunked run, bit for bit; 2 epochs on the first 110 batches
+    (``B % L != 0``: the boundary window wraps into unconsumed batches)
+    and an epoch resumed 10 steps into a round, each against the JAX
+    package's loss; both layouts timed in turns with their idle shares;
+    fused adaQN (kernel route) on the generic path against its chunked run
+    bit for bit, the JAX codes, and in float64 every guard f within 1e-6.
+16. bfloat16 storage: fused SQN with ``pairs_bf16=True`` in block layout
+    and interleaved, every direction on ``direction_streamed``'s bfloat16
+    variant and no plain version; oLBFGS with bfloat16 interleaved pairs,
+    in float32 and again in float64 math; adaQN with ``fisher_bf16=True``
+    on the projection kernel; each against the JAX package's bfloat16 run
+    (gates beside ``BF16_RTOL``); bf16 and
+    float32 SQN timed in turns, idle shares, the collapsed direction's
+    device time.
+17. The drivers: ``epochs_scheduled`` for 3 epochs on permutations from
+    ``default_rng(2)`` at ``step_size_sqrt`` steps against the JAX
+    package's ``jit_epochs_scheduled``; ``run_epochs`` with a shuffle
+    generator against ``epochs_scheduled`` on the permutations it drew,
+    bit for bit, with one host read (``niter``); ``stream_rounds`` of numpy minibatches through
+    ``prefetch_to_device`` against ``epochs``, bit for bit; oLBFGS with
+    ``paired_grads=True`` against the sequential layout (codes; ``x`` in
+    float64), timed in turns.
 
 The last two lines are the kernels' JSON record and the contract line
 ``{"ok": true, "device": {...}}``; the card's ``nvidia-smi`` line is
@@ -108,6 +132,7 @@ printed before them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -116,6 +141,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -125,8 +151,8 @@ import torch  # noqa: E402
 from stochqn_tpu_torch import (AdaQNConfig, FusedTrainer,  # noqa: E402
                                OLBFGSConfig, SQN_free, SQNConfig, adaQN_free,
                                oLBFGS_free)
-from stochqn_tpu_torch.core.state import (AdaQNState,  # noqa: E402
-                                          BFGSMemory, BFGSMemoryInterleaved,
+from stochqn_tpu_torch.core.state import (BFGSMemory,  # noqa: E402
+                                          BFGSMemoryInterleaved,
                                           SHIFT_MAX_BYTES)
 from stochqn_tpu_torch.fused import (_adaqn_boundary, _flat,  # noqa: E402
                                      _sqn_boundary, olbfgs_step)
@@ -137,6 +163,9 @@ from stochqn_tpu_torch.ops.pairs import commit_pair, fisher_y  # noqa: E402
 from stochqn_tpu_torch.ops import two_loop as two_loop_mod  # noqa: E402
 from stochqn_tpu_torch.ops.two_loop import (two_loop,  # noqa: E402
                                             two_loop_cached)
+from stochqn_tpu_torch.utils.data import (prefetch_to_device,  # noqa: E402
+                                          stream_rounds)
+from stochqn_tpu_torch.utils.schedules import step_size_sqrt  # noqa: E402
 
 # BibTeX shape and the bench.py workload (bench.py:70-78, :131-137).
 N_FEATURES, N_CLASSES, BATCH_SIZE, NUM_BATCHES = 1836, 159, 50, 120
@@ -303,6 +332,85 @@ ROUTE_BOUNDARIES, ROUTE_RTOL = 4, 5e-6
 # hundred roundings of 6e-8 relative to that sum).
 ADAQN_RTOL, ADAQN_ATOL = 2e-5, 1e-4
 ADAQN_BOUND_REL = 1e-5
+
+# Phases 15-17: the JAX package on the CPU on the same data, each run in
+# float32 and (phases 15 and 17) again in float64 with jax_enable_x64 and
+# float64 data and x0, to see how far float32 rounding moves the loss
+# (tools/jax_references.py [--f64] prints every number below).
+# - FusedTrainer("SQN", SQNConfig.create(mem_size=10, bfgs_upd_freq=20))
+#   with jax.jit(trainer.epoch, static_argnames=("aligned",)) at eta 1e-2:
+#   two epochs of aligned=False on the first 110 batches (B % L = 10: the
+#   window of the boundary after step 10 of each epoch but the first wraps
+#   into the epoch's unconsumed batches) end at JAX_GENERIC_110_LOSS, all
+#   220 codes 200, 10 live pairs; float64 461,146.92 (2.0e-6 away);
+# - aligned=False on the first 10 batches, then one epoch of all 120
+#   (starting 10 steps into a round): JAX_RESUME_LOSS, all 130 codes 200,
+#   5 live pairs; float64 508,591.42 (1.7e-6 away);
+# - jit_epochs_scheduled() for 3 epochs on (X, Y) flattened to 6,000
+#   rows, orders = np.random.default_rng(2).permutation(6000) drawn once
+#   per epoch in turn, step sizes step_size_sqrt(1e-2, epoch), batch_size
+#   50, aligned=True: JAX_SCHEDULED_LOSS, all 360 codes 200, 10 live
+#   pairs; float64 439,595.13 (2.7e-6 away).
+# All three are held within LOSS_RTOL, as the aligned SQN run is.
+JAX_GENERIC_110_LOSS = 461_146.0
+JAX_RESUME_LOSS = 508_590.5625
+JAX_SCHEDULED_LOSS = 439_593.9375
+# bfloat16 storage, float32 runs as above, 2 epochs on all 120 batches:
+# SQN pairs_bf16=True, block and interleaved (eta 1e-2, aligned=True);
+# oLBFGS pairs_bf16=True, pairs_interleaved=True (eta 1e-2); adaQN
+# ADAQN_KW with fisher_bf16=True and coupling "gram" (the kernel route's
+# math; eta 0.1).  Every run keeps the codes of its float32 run (SQN and
+# oLBFGS all 200, 10 live pairs; adaQN JAX_ADAQN_BOUNDARY_INFOS, one
+# live pair, 20 Fisher rows).  Each run's own distance to its float32 run
+# (JAX_LOSS_2_EPOCHS, JAX_OLBFGS_LOSS["interleaved"], JAX_ADAQN_LOSS
+# ["kernel"]): SQN block 5.5e-6, interleaved 9.1e-6, oLBFGS 6.7e-2 (the
+# rounded pairs steer every oLBFGS step), adaQN 1.2e-5.  The rule phase 7
+# uses for adaQN float32 (its gate, 1e-2, is about twice the JAX
+# package's own float32-to-float64 distance, 0.58%) sets each gate at
+# twice that distance, but never tighter than the gate of the run's
+# float32 path: LOSS_RTOL for SQN and oLBFGS, FINAL_RTOL for adaQN.
+# For oLBFGS that gate (0.14) checks convergence only; the float32 run
+# would pass it too.  In float32, bfloat16 oLBFGS forks on summation
+# order (tools/bf16_olbfgs_fork.py, on the CPU): after the first commit
+# 1,555 of the 5.8M stored entries round to another bfloat16 neighbour
+# than the JAX package's, rho is then 1e-3 and gamma 5e-4 apart, and x
+# after 20 steps is 3.2e-4 from the JAX run, as far as the JAX run with
+# float32 pairs (3.4e-4).  The JAX package forks from itself the same
+# way: the same 240 steps as one-batch epochs (another XLA program) end
+# at 101,710.45, 13.1% from its 120-batch run
+# (tools/jax_references.py).  So the semantics are held in float64
+# (float64 data, x0 and math, the pairs still bfloat16), where both
+# packages' sums agree to ~1e-16 and no stored row flips: the JAX run,
+# 120-batch or one-batch epochs alike, ends at JAX_OLBFGS_BF16_F64_LOSS,
+# all codes 200, 10 live pairs; the port on the CPU 1.7e-15 from it, the
+# JAX run with float64 pairs 5.9e-3 away.  Held within F64_RTOL, as phase
+# 15 holds adaQN in float64.
+JAX_BF16_LOSS = {"sqn_block": 451_610.53125,
+                 "sqn_interleaved": 451_608.96875,
+                 "olbfgs_interleaved": 117_016.171875,
+                 "adaqn_fisher": 117_687.609375}
+BF16_RTOL = {"sqn_block": LOSS_RTOL, "sqn_interleaved": LOSS_RTOL,
+             "olbfgs_interleaved": 0.14, "adaqn_fisher": FINAL_RTOL}
+JAX_OLBFGS_BF16_F64_LOSS = 109_025.26315829599
+# oLBFGS paired gradients against the sequential layout: the same steps,
+# held in float64 to tests/test_fused.py:418's tolerances.
+PAIRED_RTOL, PAIRED_ATOL = 1e-6, 1e-9
+
+
+@contextlib.contextmanager
+def host_reads():
+    """Collects the host syncs made inside the block (sync debug mode
+    'warn' warns at each); the list is filled when the block ends."""
+    seen = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield seen
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    seen.extend(str(w.message) for w in caught
+                if "synchroniz" in str(w.message))
 
 
 def phase(title):
@@ -866,12 +974,14 @@ def max_rel(got, want):
     return max(abs(a - b) / abs(b) for a, b in zip(got, want))
 
 
-def adaqn_two_epochs(name, x0, data, use_pallas):
-    """A trainer of the smoke's adaQN config, and 2 epochs of it from
-    ``x0`` through ``epochs(aligned=True)`` under sync debug mode
-    'error'.  Returns the trainer, the state, the info codes (all, and at
-    the boundaries), the guard's f at each boundary and the launch
-    counts (the projection kernel's, all the others')."""
+def adaqn_two_epochs(name, x0, data, use_pallas, aligned=True, **cfg_kw):
+    """A trainer of the smoke's adaQN config (with ``cfg_kw``), and 2
+    epochs of it from ``x0`` through ``epochs(aligned=aligned)``: with
+    ``aligned=True`` under sync debug mode 'error', else counting the
+    host reads (one: ``niter``, before the first epoch).  Returns the
+    trainer, the state, the info codes (all, and at the boundaries), the
+    guard's f at each boundary and the launch counts (the projection
+    kernel's, all the others')."""
     fvals = []
 
     def recording_obj_fn(x, batch):
@@ -879,22 +989,27 @@ def adaqn_two_epochs(name, x0, data, use_pallas):
         fvals.append(f)         # a device tensor: no sync
         return f
     trainer = FusedTrainer("adaQN", AdaQNConfig.create(
-        **ADAQN_KW, use_pallas=use_pallas), grad_fn, obj_fn=recording_obj_fn)
-    # trainer.init (adaqn.init) takes float32 only: the float64 run makes
-    # its state directly
-    state = (trainer.init(x0) if x0.dtype == torch.float32 else
-             AdaQNState.create(x0, MEM_SIZE, ADAQN_KW["fisher_size"]))
+        **ADAQN_KW, use_pallas=use_pallas, **cfg_kw), grad_fn,
+        obj_fn=recording_obj_fn)
+    state = trainer.init(x0)
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    torch.cuda.set_sync_debug_mode("error")     # a host sync inside raises
-    state, infos = trainer.epochs(state, data, ADAQN_STEP, nepochs=2,
-                                  aligned=True)
-    torch.cuda.set_sync_debug_mode(0)
+    if aligned:
+        torch.cuda.set_sync_debug_mode("error")     # a host sync raises
+        state, infos = trainer.epochs(state, data, ADAQN_STEP, nepochs=2,
+                                      aligned=True)
+        torch.cuda.set_sync_debug_mode(0)
+        check(True, f"{name}: no host sync inside epochs (sync debug mode "
+              "'error')")
+    else:
+        with host_reads() as reads:
+            state, infos = trainer.epochs(state, data, ADAQN_STEP, nepochs=2,
+                                          aligned=aligned)
+        check(len(reads) == 1, f"{name}: {len(reads)} host read in 2 epochs "
+              f"with aligned={aligned} (niter, once; sync debug mode 'warn')")
     counts = read_launches()
     launches = (counts.pop("project_adaqn"), sum(counts.values()))
-    check(True, f"{name}: no host sync inside epochs (sync debug mode "
-          "'error')")
     torch.cuda.synchronize()
     print(f"  {name}: 2 epochs ({2 * NUM_BATCHES} steps) in "
           f"{time.perf_counter() - t0:.3f} s, first call included",
@@ -1968,6 +2083,460 @@ def sqn_interleaved_phase(dev):
     return ({chosen: launches}, streamed, ips, ips20)
 
 
+# ---------------------------------------------------------------------------
+def in_turns(runs, epoch, steps=NUM_BATCHES):
+    """Steady epochs of two runs (name -> [trainer, state]) in turns (a,
+    b, b, a, a, b), so that both see the same card and host; ``epoch(name,
+    trainer, state)`` returns the new state.  Returns each run's median
+    iters/s."""
+    a, b = runs
+    rates = {name: [] for name in runs}
+    for name in (a, b, b, a, a, b):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name][1] = epoch(name, *runs[name])
+        torch.cuda.synchronize()
+        rates[name].append(steps / (time.perf_counter() - t0))
+    ips = {name: statistics.median(v) for name, v in rates.items()}
+    for name, vals in rates.items():
+        print(f"  {name}: steady epochs (in turns): "
+              f"{', '.join(f'{v:.1f}' for v in vals)} iters/s; median "
+              f"{ips[name]:.1f} iters/s", flush=True)
+        check(bool(torch.isfinite(runs[name][1].x).all()),
+              f"{name}: x finite after the steady epochs")
+    return ips
+
+
+def idle_shares(runs, epoch):
+    """The device's idle share of one more epoch of each run: busy time
+    from a profiler trace against the wall of the same epoch without the
+    profiler.  None where the trace shows no device time."""
+    idle = {}
+    for name, run in runs.items():
+        def one_epoch(name=name, run=run):
+            run[1] = epoch(name, *run)
+        busy = device_busy_ms(one_epoch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_epoch()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        idle[name] = None if busy is None else 1 - busy / wall
+        print(f"  {name}: one epoch {wall:.2f} ms of wall, device busy "
+              + ("not measured (the trace shows no device time)"
+                 if busy is None else f"{busy:.2f} ms under the profiler: "
+                 f"idle {100 * idle[name]:.1f}%"), flush=True)
+    return idle
+
+
+def sqn_trainer(**cfg_kw):
+    return FusedTrainer("SQN", SQNConfig.create(
+        mem_size=MEM_SIZE, bfgs_upd_freq=UPD_FREQ, **cfg_kw), grad_fn)
+
+
+def same_state(a, b):
+    """Every tensor of two states of one kind is the same bits."""
+    for f in dataclasses.fields(a):
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        if dataclasses.is_dataclass(va):
+            if not same_state(va, vb):
+                return False
+        elif isinstance(va, torch.Tensor) and not torch.equal(va, vb):
+            return False
+    return True
+
+
+def loss_gate(what, loss, want, rtol):
+    rel = abs(loss - want) / want
+    check(rel <= rtol, f"{what}: loss {loss:.4f} vs the JAX package's {want} "
+          f"(CPU): rel diff {rel:.3e} <= {rtol}")
+
+
+def generic_phase(dev):
+    phase("15. the generic per-step layout at BibTeX shape: aligned=False "
+          "against chunked, B = 110, a mid-round resume, adaQN")
+    X, Y, x0 = bench_data(dev)
+    Xf, Yf = X.reshape(-1, N_FEATURES), Y.reshape(-1, N_CLASSES)
+    data = (X, Y)
+    steps = 2 * NUM_BATCHES
+
+    def full_loss(x):
+        return float(losses.multinomial_logistic_loss(x, Xf, Yf, None, REG))
+
+    chosen, _ = gate_choice(MEM_SIZE, N_FLAGSHIP, dev)
+    plain_calls, restore_plain = spy_plain()
+    trainer = sqn_trainer()
+    runs, launches = {}, {}
+    for layout, aligned in (("chunked", True), ("generic", False)):
+        state = trainer.init(x0)
+        torch.cuda.synchronize()
+        reset_launches()
+        with host_reads() as reads:
+            state, infos = trainer.epochs(state, data, STEP, nepochs=2,
+                                          aligned=aligned)
+        counts = read_launches()
+        launches[layout] = counts.pop(chosen)
+        want_reads = 0 if aligned else 1
+        check(len(reads) == want_reads and launches[layout] == steps
+              and not any(counts.values()) and not plain_calls,
+              f"{layout} (aligned={aligned}): {len(reads)} host reads in 2 "
+              f"epochs ({want_reads}: niter); {chosen} launched "
+              f"{launches[layout]} times for {steps} steps, the others "
+              f"{counts}, no plain version")
+        runs[layout] = [trainer, state, infos]
+    (_, sc, ic), (_, sg, ig) = runs["chunked"], runs["generic"]
+    check(torch.equal(ic, ig) and same_state(sc, sg),
+          "generic layout (aligned=False) on 120 batches: every tensor of "
+          "the state and every info code the same bits as the chunked run")
+    loss_gate("generic, 2 epochs", full_loss(sg.x), JAX_LOSS_2_EPOCHS,
+              LOSS_RTOL)
+
+    # B = 110: a fresh state asserted aligned reads nothing; both epochs
+    # take the generic layout (110 % 20 != 0), the second from step 10 of
+    # a round
+    d110 = (X[:110], Y[:110])
+    state = trainer.init(x0)
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    state, infos = trainer.epochs(state, d110, STEP, nepochs=2, aligned=True)
+    torch.cuda.set_sync_debug_mode(0)
+    launches["b110"] = read_launches()[chosen]
+    infos_l = infos.cpu().flatten().tolist()
+    check(launches["b110"] == 220 and set(infos_l) == {200}
+          and int(state.mem.count) == MEM_SIZE,
+          f"B=110, 2 epochs: no host sync (sync debug mode 'error'), "
+          f"{chosen} launched {launches['b110']} times for 220 steps, all "
+          f"codes 200, {MEM_SIZE} live pairs")
+    loss_gate("B=110, 2 epochs", full_loss(state.x), JAX_GENERIC_110_LOSS,
+              LOSS_RTOL)
+
+    # resumed mid-round: 10 steps, then an epoch of 120 with aligned=None
+    state = trainer.init(x0)
+    state, _ = trainer.epoch(state, (X[:10], Y[:10]), STEP, aligned=True)
+    torch.cuda.synchronize()
+    reset_launches()
+    with host_reads() as reads:
+        state, infos = trainer.epoch(state, data, STEP)
+    launches["resume"] = read_launches()[chosen]
+    check(len(reads) == 1 and launches["resume"] == NUM_BATCHES
+          and int(state.niter) == 130 and int(state.mem.count) == 5
+          and set(infos.tolist()) == {200},
+          f"resumed 10 steps into a round: {len(reads)} host read (niter), "
+          f"{chosen} launched {launches['resume']} times for {NUM_BATCHES} "
+          "steps, niter 130, 5 live pairs, all codes 200")
+    loss_gate("resumed epoch", full_loss(state.x), JAX_RESUME_LOSS,
+              LOSS_RTOL)
+
+    # generic against chunked: steady epochs in turns, and idle shares
+    def epoch(name, tr, st):
+        return tr.epochs(st, data, STEP, nepochs=1,
+                         aligned=name == "chunked")[0]
+    turns = {name: [trainer, runs[name][1]] for name in runs}
+    ips = in_turns(turns, epoch)
+    idle = idle_shares(turns, epoch)
+
+    # adaQN fisher, kernel route, on the generic path: the chunked run's
+    # bits, the JAX package's codes; float64 (plain route) at every
+    # boundary against the JAX package's float64 run
+    ada = {}
+    for layout, aligned in (("chunked", True), ("generic", False)):
+        ada[layout] = adaqn_two_epochs(f"adaQN {layout}", x0, data, True,
+                                       aligned=aligned)
+    _, sa, ia, _, fa, _ = ada["chunked"]
+    _, sb, ib, binfos, fb, (ada_launches, ada_other) = ada["generic"]
+    check(ada_launches == steps and ada_other == 0,
+          f"adaQN generic: project_adaqn launched {ada_launches} times for "
+          f"{steps} steps, the other kernels {ada_other} times")
+    hist = {c: ib.count(c) for c in sorted(set(ib))}
+    check(hist == JAX_ADAQN_INFOS and binfos == JAX_ADAQN_BOUNDARY_INFOS,
+          f"adaQN generic: info histogram {hist}, boundary codes {binfos}: "
+          "the JAX package's")
+    check(ia == ib and fa == fb and same_state(sa, sb),
+          "adaQN generic: the chunked run's state, codes and guard values, "
+          "bit for bit")
+    early = max_rel(fb[:EARLY_BOUNDARIES], JAX_F64_GUARD_F[:EARLY_BOUNDARIES])
+    check(early <= EARLY_RTOL, f"adaQN generic: guard f at boundaries "
+          f"1-{EARLY_BOUNDARIES} vs the JAX float64 run: {early:.3e} <= "
+          f"{EARLY_RTOL}")
+    _, s64, _, b64, f64, l64 = adaqn_two_epochs(
+        "adaQN generic float64", x0.double(), (X.double(), Y.double()), None,
+        aligned=False)
+    loss64 = float(losses.multinomial_logistic_loss(
+        s64.x, Xf.double(), Yf.double(), None, REG))
+    rel_f = max_rel(f64, JAX_F64_GUARD_F)
+    rel64 = abs(loss64 - JAX_F64_LOSS) / JAX_F64_LOSS
+    check(l64 == (0, 0) and b64 == JAX_ADAQN_BOUNDARY_INFOS
+          and rel_f <= F64_RTOL and rel64 <= F64_RTOL,
+          f"adaQN generic float64: no kernel, the JAX codes, guard f at all "
+          f"12 boundaries (max rel diff {rel_f:.3e}) and the loss {loss64:.4f}"
+          f" ({rel64:.3e}) within {F64_RTOL} of the JAX float64 run")
+    restore_plain()
+    return dict(launches=launches["generic"] + launches["b110"]
+                + launches["resume"],
+                adaqn_launches=ada_launches, iters_per_s=ips,
+                idle_share=idle)
+
+
+def bf16_phase(dev):
+    phase("16. bfloat16 storage at BibTeX shape: SQN block and interleaved "
+          "on direction_streamed, oLBFGS interleaved, adaQN fisher_bf16")
+    X, Y, x0 = bench_data(dev)
+    Xf, Yf = X.reshape(-1, N_FEATURES), Y.reshape(-1, N_CLASSES)
+    data = (X, Y)
+    steps = 2 * NUM_BATCHES
+
+    def full_loss(x):
+        return float(losses.multinomial_logistic_loss(x, Xf, Yf, None, REG))
+
+    plain_calls, restore_plain = spy_plain()
+    runs, launches = {}, {}
+    for layout in ("block", "interleaved"):
+        trainer = sqn_trainer(pairs_bf16=True,
+                              pairs_interleaved=layout == "interleaved")
+        state = trainer.init(x0.cpu().numpy())
+        rows = state.mem.sy if layout == "interleaved" else state.mem.s
+        torch.cuda.synchronize()
+        reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        state, infos = trainer.epochs(state, data, STEP, nepochs=2,
+                                      aligned=True)
+        torch.cuda.set_sync_debug_mode(0)
+        counts = read_launches()
+        launches[layout] = counts.pop("direction_streamed")
+        infos_l = infos.cpu().flatten().tolist()
+        check(rows.dtype == torch.bfloat16 and rows.device.type == "cuda"
+              and launches[layout] == steps and not any(counts.values())
+              and not plain_calls,
+              f"SQN bf16 {layout}: pairs bfloat16 on the card, no host sync, "
+              f"direction_streamed launched {launches[layout]} times for "
+              f"{steps} steps on bfloat16 pairs, the others {counts}, no "
+              f"plain version ({len(plain_calls)} calls)")
+        check(set(infos_l) == {200} and int(state.mem.count) == MEM_SIZE,
+              f"SQN bf16 {layout}: all codes 200, {MEM_SIZE} live pairs")
+        name = f"sqn_{layout}"
+        loss_gate(f"SQN bf16 {layout}, 2 epochs", full_loss(state.x),
+                  JAX_BF16_LOSS[name], BF16_RTOL[name])
+        runs[f"bf16 {layout}"] = [trainer, state]
+
+    # bf16 against float32 (block), steady epochs in turns and idle shares
+    f32 = sqn_trainer()
+    st32, _ = f32.epochs(f32.init(x0), data, STEP, nepochs=2, aligned=True)
+    pair = {"float32 block": [f32, st32], "bf16 block": runs["bf16 block"]}
+
+    def epoch(name, tr, st):
+        return tr.epochs(st, data, STEP, nepochs=1, aligned=True)[0]
+    ips = in_turns(pair, epoch)
+    idle = idle_shares(pair, epoch)
+    g = grad_fn(x0, (X[0], Y[0]))
+    t_dir = {}
+    for name, (_, st) in pair.items():
+        t_dir[name] = device_ms(
+            lambda st=st: two_loop_cached(g, st.mem, collapsed=True), 50)
+    print(f"  collapsed direction, device: float32 "
+          f"{t_dir['float32 block']:.4f} ms, bf16 {t_dir['bf16 block']:.4f} "
+          f"ms (m={MEM_SIZE}, n={N_FLAGSHIP})", flush=True)
+
+    # oLBFGS, bf16 interleaved pairs: no kernel serves it
+    ol = FusedTrainer("oLBFGS", OLBFGSConfig.create(
+        mem_size=MEM_SIZE, pairs_bf16=True, pairs_interleaved=True), grad_fn)
+    state = ol.init(x0)
+    reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    state, infos = ol.epochs(state, data, STEP, nepochs=2)
+    torch.cuda.set_sync_debug_mode(0)
+    counts = read_launches()
+    check(state.mem.sy.dtype == torch.bfloat16 and not any(counts.values())
+          and set(infos.flatten().tolist()) == {200}
+          and int(state.mem.count) == MEM_SIZE,
+          f"oLBFGS bf16 interleaved: bfloat16 pairs, no host sync, no kernel "
+          f"({counts}), all codes 200, {MEM_SIZE} live pairs")
+    loss_gate("oLBFGS bf16 interleaved, 2 epochs", full_loss(state.x),
+              JAX_BF16_LOSS["olbfgs_interleaved"],
+              BF16_RTOL["olbfgs_interleaved"])
+    # the same run in float64 math, the pairs still bfloat16: no stored
+    # row flips, so the port is held to the JAX package's bfloat16 steps
+    X64, Y64, x64 = X.double(), Y.double(), x0.double()
+    state = ol.init(x64)
+    torch.cuda.set_sync_debug_mode("error")
+    state, infos = ol.epochs(state, (X64, Y64), STEP, nepochs=2)
+    torch.cuda.set_sync_debug_mode(0)
+    check(state.mem.sy.dtype == torch.bfloat16
+          and state.x.dtype == torch.float64
+          and set(infos.flatten().tolist()) == {200}
+          and int(state.mem.count) == MEM_SIZE,
+          "oLBFGS bf16 interleaved, float64 iterate: bfloat16 pairs, no host "
+          f"sync, all codes 200, {MEM_SIZE} live pairs")
+    loss_gate("oLBFGS bf16 interleaved in float64, 2 epochs",
+              float(losses.multinomial_logistic_loss(
+                  state.x, X64.reshape(-1, N_FEATURES),
+                  Y64.reshape(-1, N_CLASSES), None, REG)),
+              JAX_OLBFGS_BF16_F64_LOSS, F64_RTOL)
+
+    # adaQN, bf16 Fisher rows, kernel route (the pairs stay float32)
+    _, st, infos_l, binfos, f, (ada_launches, other) = adaqn_two_epochs(
+        "adaQN fisher_bf16", x0, data, True, fisher_bf16=True)
+    hist = {c: infos_l.count(c) for c in sorted(set(infos_l))}
+    check(st.fisher.f.dtype == torch.bfloat16 and ada_launches == steps
+          and other == 0 and hist == JAX_ADAQN_INFOS
+          and binfos == JAX_ADAQN_BOUNDARY_INFOS,
+          f"adaQN fisher_bf16: bfloat16 Fisher rows, project_adaqn launched "
+          f"{ada_launches} times for {steps} steps (others {other}), info "
+          f"histogram {hist} and boundary codes: the JAX package's")
+    loss_gate("adaQN fisher_bf16, 2 epochs", full_loss(st.x),
+              JAX_BF16_LOSS["adaqn_fisher"], BF16_RTOL["adaqn_fisher"])
+    restore_plain()
+    return dict(launches=launches, adaqn_launches=ada_launches,
+                iters_per_s=ips, idle_share=idle, direction_ms=t_dir)
+
+
+def drivers_phase(dev):
+    phase("17. drivers at BibTeX shape: epochs_scheduled, run_epochs with a "
+          "shuffle, stream_rounds, paired oLBFGS")
+    X, Y, x0 = bench_data(dev)
+    Xf, Yf = X.reshape(-1, N_FEATURES), Y.reshape(-1, N_CLASSES)
+    data = (X, Y)
+    rows = NUM_BATCHES * BATCH_SIZE
+
+    def full_loss(x):
+        return float(losses.multinomial_logistic_loss(x, Xf, Yf, None, REG))
+
+    chosen, _ = gate_choice(MEM_SIZE, N_FLAGSHIP, dev)
+    plain_calls, restore_plain = spy_plain()
+    trainer = sqn_trainer()
+    launches = {}
+    rng = np.random.default_rng(2)
+    # the schedule on the card before the run (a copy from the host waits)
+    orders = torch.from_numpy(np.stack([rng.permutation(rows)
+                                        for _ in range(3)])).to(dev)
+    etas = torch.tensor([step_size_sqrt(STEP, e) for e in range(3)],
+                        dtype=torch.float32, device=dev)
+    state = trainer.init(x0)
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    state, infos = trainer.epochs_scheduled(state, (Xf, Yf), etas, orders,
+                                            batch_size=BATCH_SIZE,
+                                            aligned=True)
+    torch.cuda.set_sync_debug_mode(0)
+    counts = read_launches()
+    launches["scheduled"] = counts.pop(chosen)
+    check(launches["scheduled"] == 3 * NUM_BATCHES
+          and not any(counts.values()) and not plain_calls
+          and set(infos.flatten().tolist()) == {200}
+          and int(state.mem.count) == MEM_SIZE,
+          f"epochs_scheduled, 3 epochs: no host sync, {chosen} launched "
+          f"{launches['scheduled']} times, others {counts}, all codes 200, "
+          f"{MEM_SIZE} live pairs")
+    loss_gate("epochs_scheduled, 3 epochs", full_loss(state.x),
+              JAX_SCHEDULED_LOSS, LOSS_RTOL)
+
+    # run_epochs with a shuffle is epochs_scheduled on the permutations
+    # it drew
+    gen = torch.Generator(device=dev).manual_seed(3)
+    twin = torch.Generator(device=dev).manual_seed(3)
+    state = trainer.init(x0)
+    torch.cuda.synchronize()
+    reset_launches()
+    with host_reads() as reads:
+        state, infos = trainer.run_epochs(state, data, 2, STEP,
+                                          decr_step_size=step_size_sqrt,
+                                          shuffle=gen)
+    launches["run_epochs"] = read_launches()[chosen]
+    drawn = torch.stack([torch.randperm(rows, generator=twin, device=dev)
+                         for _ in range(2)])
+    etas2 = torch.tensor([step_size_sqrt(STEP, e) for e in range(2)],
+                         dtype=torch.float32, device=dev)
+    st2, infos2 = trainer.epochs_scheduled(trainer.init(x0), (Xf, Yf), etas2,
+                                           drawn, batch_size=BATCH_SIZE,
+                                           aligned=True)
+    check(len(reads) == 1,
+          f"run_epochs with a shuffle: {len(reads)} host sync in 2 epochs, "
+          "the one read of niter before the first"
+          + (f" ({reads[0][:80]})" if reads else ""))
+    check(launches["run_epochs"] == 2 * NUM_BATCHES and torch.equal(
+        infos, infos2) and same_state(state, st2),
+          f"run_epochs(shuffle=generator): {chosen} launched "
+          f"{launches['run_epochs']} times; the same bits as epochs_scheduled "
+          "on the permutations it drew")
+
+    # stream_rounds from numpy minibatches through prefetch_to_device
+    Xn, Yn = X.cpu().numpy(), Y.cpu().numpy()
+    ref, ref_infos = trainer.epochs(trainer.init(x0), data, STEP, nepochs=1,
+                                    aligned=True)
+    state = trainer.init(x0)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    state, infos = stream_rounds(trainer, state,
+                                 ((Xn[i], Yn[i]) for i in range(NUM_BATCHES)),
+                                 STEP)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    stream_ips = NUM_BATCHES / (time.perf_counter() - t0)
+    launches["stream_rounds"] = read_launches()[chosen]
+    check(launches["stream_rounds"] == NUM_BATCHES
+          and torch.equal(infos, ref_infos[0]) and same_state(state, ref),
+          f"stream_rounds of numpy minibatches (pinned, non_blocking "
+          f"copies): no host sync, {chosen} launched "
+          f"{launches['stream_rounds']} times, the same bits as epochs on the "
+          f"same batches; {stream_ips:.1f} iters/s, first call included")
+    check(next(prefetch_to_device([Xn[0]])).device.type == "cuda",
+          "prefetch_to_device defaults to the card")
+
+    # oLBFGS: paired gradients against the sequential layout.  A vmapped
+    # pair of gradients sums in another order than two calls, so float32
+    # trajectories part at rounding level and that grows over 240 steps
+    # (as the block and interleaved layouts part, phase 13): float32 is
+    # held to the same codes and the JAX loss, and x to the tolerances of
+    # tests/test_fused.py:418 in float64, where that test runs.
+    olr = {}
+    for dtype in (torch.float32, torch.float64):
+        d = (X.to(dtype), Y.to(dtype))
+        for paired in (False, True):
+            tr = FusedTrainer("oLBFGS", OLBFGSConfig.create(
+                mem_size=MEM_SIZE), grad_fn, paired_grads=paired)
+            torch.cuda.set_sync_debug_mode("error")
+            st, inf = tr.epochs(tr.init(x0.to(dtype)), d, STEP, nepochs=2)
+            torch.cuda.set_sync_debug_mode(0)
+            olr[dtype, paired] = [tr, st, inf]
+    g_seq = torch.stack([grad_fn(x0, (X[-1], Y[-1])),
+                         grad_fn(x0, (X[0], Y[0]))])
+    g_pair = torch.func.vmap(grad_fn, in_dims=(None, 0))(
+        x0, (torch.stack([X[-1], X[0]]), torch.stack([Y[-1], Y[0]])))
+    print(f"  vmapped pair of gradients vs two calls (float32): max abs diff "
+          f"{float((g_pair - g_seq).abs().max()):.3e} (max |g| "
+          f"{float(g_seq.abs().max()):.3e})", flush=True)
+    pruns = {("paired" if paired else "sequential"): olr[dt, paired][:2]
+             for dt, paired in olr if dt == torch.float32}
+
+    def ol_epoch(name, tr, st):
+        return tr.epochs(st, data, STEP, nepochs=1)[0]
+    paired_ips = in_turns(pruns, ol_epoch)
+    paired_idle = idle_shares(pruns, ol_epoch)
+    for dtype in (torch.float32, torch.float64):
+        (_, ss, is_), (_, sp, ip) = olr[dtype, False], olr[dtype, True]
+        err = float((sp.x - ss.x).abs().max())
+        print(f"  oLBFGS paired vs sequential, {dtype}: x max abs diff "
+              f"{err:.3e} (max |x| {float(ss.x.abs().max()):.3e})",
+              flush=True)
+        check(torch.equal(ip, is_) and set(ip.flatten().tolist()) == {200},
+              f"oLBFGS paired vs sequential, {dtype}: the same info codes, "
+              "all 200")
+    (_, sp32, _), (_, sp64, _) = olr[torch.float32, True], \
+        olr[torch.float64, True]
+    loss_gate("oLBFGS paired float32, 2 epochs", full_loss(sp32.x),
+              JAX_OLBFGS_LOSS["block"], LOSS_RTOL)
+    ss64 = olr[torch.float64, False][1]
+    check(torch.allclose(sp64.x, ss64.x, rtol=PAIRED_RTOL, atol=PAIRED_ATOL),
+          f"oLBFGS paired vs sequential, float64: x within rtol "
+          f"{PAIRED_RTOL}, atol {PAIRED_ATOL}")
+    restore_plain()
+    return dict(launches=launches, stream_iters_per_s=stream_ips,
+                paired_iters_per_s=paired_ips, paired_idle_share=paired_idle)
+
+
 def check_no_spills(report):
     """ptxas's report of the build (``-Xptxas -v``): every kernel of the
     four sources is in it, and none spills a byte."""
@@ -2045,11 +2614,21 @@ def main():
     olbfgs = olbfgs_phase(dev)
     ilv_launches, ilv_m20_launches, ilv_ips, ilv_m20_ips = \
         sqn_interleaved_phase(dev)
+    generic = generic_phase(dev)
+    bf16 = bf16_phase(dev)
+    drivers = drivers_phase(dev)
 
     # launches: the counts of the paths driven above (fused SQN, fused adaQN,
     # free-mode SQN at m = 10 and m = 20, free-mode adaQN, fused SQN
-    # interleaved at m = 10 and m = 20), each read after a path that began
-    # with every count at 0; the oLBFGS paths launch no kernel
+    # interleaved at m = 10 and m = 20, the generic layout, bfloat16 pairs
+    # and Fisher rows, the scheduled, shuffled and streamed drivers), each
+    # read after a path that began with every count at 0; the oLBFGS paths
+    # launch no kernel.  The float32 SQN paths of phases 15 and 17 count
+    # under the kernel the gate chose.
+    chosen, _ = gate_choice(MEM_SIZE, N_FLAGSHIP, dev)
+    sqn_f32_paths = {"fused_sqn_generic": generic["launches"],
+                     **{f"fused_sqn_{k}": v
+                        for k, v in drivers["launches"].items()}}
     by_path = {
         "direction": {"fused_sqn": sqn_launches.get("direction", 0),
                       "free_sqn": free_launches.get("direction", 0),
@@ -2060,16 +2639,35 @@ def main():
             "free_sqn": free_launches.get("direction_streamed", 0),
             "fused_sqn_interleaved":
                 ilv_launches.get("direction_streamed", 0),
-            "fused_sqn_interleaved_m20": ilv_m20_launches},
+            "fused_sqn_interleaved_m20": ilv_m20_launches,
+            "fused_sqn_bf16": bf16["launches"]["block"],
+            "fused_sqn_bf16_interleaved": bf16["launches"]["interleaved"]},
         "project": {"free_sqn_oracle_audits": free_launches["project"],
                     "free_sqn_m20_oracle_audits":
                         free_launches["project_m20"]},
         "project_adaqn": {"fused_adaqn": adaqn_launches,
-                          "free_adaqn": free_adaqn_launches},
+                          "free_adaqn": free_adaqn_launches,
+                          "fused_adaqn_generic": generic["adaqn_launches"],
+                          "fused_adaqn_fisher_bf16": bf16["adaqn_launches"]},
     }
+    by_path[chosen].update(sqn_f32_paths)
+    for name, launches in (("fused_sqn_bf16", bf16["launches"]["block"]),
+                           ("fused_sqn_bf16_interleaved",
+                            bf16["launches"]["interleaved"]),
+                           ("fused_adaqn_generic", generic["adaqn_launches"]),
+                           ("fused_adaqn_fisher_bf16",
+                            bf16["adaqn_launches"])):
+        check(launches > 0, f"{name} launched its kernel: {launches}")
     for name, paths in by_path.items():
         check(sum(paths.values()) > 0,
               f"{name} was launched on a driven path: {paths}")
+    print(f"  generic vs chunked SQN: {generic['iters_per_s']} iters/s, "
+          f"idle {generic['idle_share']}; bf16 vs float32 SQN: "
+          f"{bf16['iters_per_s']} iters/s, idle {bf16['idle_share']}, "
+          f"collapsed direction {bf16['direction_ms']} ms; paired vs "
+          f"sequential oLBFGS: {drivers['paired_iters_per_s']} iters/s, idle "
+          f"{drivers['paired_idle_share']}; stream_rounds "
+          f"{drivers['stream_iters_per_s']:.1f} iters/s", flush=True)
     print(f"  oLBFGS (no kernel): fused iters/s block "
           f"{olbfgs['iters_per_s']['block']:.1f}, interleaved "
           f"{olbfgs['iters_per_s']['interleaved']:.1f}; oLBFGS_free "
@@ -2087,8 +2685,10 @@ def main():
     print(json.dumps({"kernels": [
         entry("direction_streamed", 309, max_abs, f32,
               direction_bound(MEM_SIZE, N_FLAGSHIP), bf16=timing["bfloat16"],
+              bf16_bound=direction_bound(MEM_SIZE, N_FLAGSHIP, 2),
               m20=timing["m20"], iters_per_s=streamed_ips,
-              interleaved_m20_iters_per_s=ilv_m20_ips),
+              interleaved_m20_iters_per_s=ilv_m20_ips,
+              bf16_iters_per_s=bf16["iters_per_s"]["bf16 block"]),
         entry("project_adaqn", 390, adaqn_max_abs, adaqn_timing,
               project_adaqn_bound(MEM_SIZE, N_FLAGSHIP),
               worst_err_share_of_f64_bound=adaqn_share,

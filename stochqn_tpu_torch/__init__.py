@@ -21,7 +21,13 @@ oracles ``two_loop`` / ``two_loop_sequential`` and the last two kernels
 ``FusedTrainer("oLBFGS")`` on the uncollapsed cached two-loop, with the
 interleaved pair layout (``BFGSMemoryInterleaved``, shift and ring
 commits) for oLBFGS and SQN, whose collapsed direction takes the same two
-kernels on the interleaved buffer.  ROADMAP.md lists what comes next.
+kernels on the interleaved buffer; and the rest of the fused engine: the
+generic per-step epoch layout (any epoch length, any start), the
+scheduled, shuffled and streamed epoch drivers (``epochs_scheduled``,
+``run_epochs``, ``shuffle_batched``, ``utils.data.stream_rounds``), paired
+oLBFGS gradients, bfloat16 pair and Fisher storage in every optimizer
+(the bfloat16 pairs on ``direction_streamed``), and ``utils`` (schedules,
+streaming, metrics).  ROADMAP.md lists what comes next.
 """
 from stochqn_tpu_torch.convert import (
     adaqn_state_from_numpy, adaqn_state_to_numpy,
@@ -36,7 +42,8 @@ from stochqn_tpu_torch.core.state import (AdaQNState, BFGSMemory,
                                           BFGSMemoryInterleaved,
                                           FisherMemory, OLBFGSState, SQNState)
 from stochqn_tpu_torch.free import SQN_free, adaQN_free, oLBFGS_free
-from stochqn_tpu_torch.fused import FusedTrainer, batchify
+from stochqn_tpu_torch.fused import (FusedTrainer, batchify,
+                                     shuffle_batched)
 from stochqn_tpu_torch.models import losses
 from stochqn_tpu_torch.ops.kernels.two_loop_kernel import (
     direction, direction_ref, direction_streamed, direction_streamed_ref,
@@ -52,7 +59,7 @@ __all__ = [
     "BFGSMemory", "BFGSMemoryInterleaved", "OLBFGSState", "SQNState",
     "FisherMemory", "AdaQNState",
     "AdvanceResult", "oLBFGS_free", "SQN_free", "adaQN_free",
-    "FusedTrainer", "batchify",
+    "FusedTrainer", "batchify", "shuffle_batched",
     "losses",
     "commit_pair", "conditional_flush", "direction_is_bad", "fisher_y",
     "two_loop", "two_loop_cached", "two_loop_sequential",

@@ -14,6 +14,13 @@ sides then compute the same thing from the same state.
 The JAX package keeps ``head``/``count``/``perm``/``niter``/``section`` in
 ``int32``; here they are ``int64`` (torch indexes with ``int64``), and the
 conversion casts both ways.  Every tensor is a fresh copy.
+
+bfloat16 rows (``pairs_bf16`` / ``fisher_bf16`` state) need no
+``ml_dtypes``: a JAX bfloat16 array comes in through its bits
+(``a.view(np.uint16)``), and a bfloat16 tensor goes out as its bit
+pattern, a ``uint16`` array, which ``from_numpy`` reads back as bfloat16
+and JAX as ``jax.lax.bitcast_convert_type(a, jnp.bfloat16)``: the round
+trip is exact both ways.
 """
 from __future__ import annotations
 
@@ -33,11 +40,17 @@ def _tensor(name, value, device):
     arr = np.array(value, copy=True)
     if name in _INT_FIELDS:
         return torch.from_numpy(arr.astype(np.int64)).to(device)
+    if arr.dtype.name in ("bfloat16", "uint16"):     # bfloat16 bits
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).to(device)
     return torch.from_numpy(arr).to(device)
 
 
 def _array(name, t: torch.Tensor) -> np.ndarray:
-    arr = t.detach().cpu().numpy().copy()
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16).copy()
+    arr = t.numpy().copy()
     return arr.astype(np.int32) if name in _INT_FIELDS else arr
 
 

@@ -50,9 +50,9 @@ import torch
 from stochqn_tpu_torch.core.config import AdaQNConfig
 from stochqn_tpu_torch.core.enums import Info, Task
 from stochqn_tpu_torch.core.protocol import (NO_PROBLEMS, AdvanceResult,
-                                             commit_info, goto, host_ints,
-                                             no_bad, resume, scalar_like,
-                                             step_info)
+                                             check_iterate_dtype, commit_info,
+                                             goto, host_ints, no_bad, resume,
+                                             scalar_like, step_info)
 from stochqn_tpu_torch.core.state import AdaQNState
 from stochqn_tpu_torch.ops.accumulators import diag_rescal
 from stochqn_tpu_torch.ops.pairs import (commit_pair, conditional_flush,
@@ -61,15 +61,10 @@ from stochqn_tpu_torch.ops.two_loop import two_loop_cached
 
 
 def init(x0: torch.Tensor, cfg: AdaQNConfig) -> AdaQNState:
-    if cfg.pairs_bf16 or cfg.fisher_bf16:
-        raise NotImplementedError(
-            "bfloat16 pair or Fisher state is not ported yet "
-            "(ROADMAP A.13, slice 5)")
-    if x0.dtype not in (torch.float32, torch.float64):
-        raise NotImplementedError(
-            f"adaQN state is float32 or float64, got {x0.dtype} "
-            "(bfloat16 state is ROADMAP A.13, slice 5)")
-    return AdaQNState.create(x0, cfg.mem_size, cfg.fisher_size)
+    check_iterate_dtype(x0, "adaQN")
+    return AdaQNState.create(x0, cfg.mem_size, cfg.fisher_size,
+                             pairs_bf16=cfg.pairs_bf16,
+                             fisher_bf16=cfg.fisher_bf16)
 
 
 def step(cfg: AdaQNConfig, state: AdaQNState, grad: torch.Tensor,

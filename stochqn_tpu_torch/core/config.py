@@ -39,9 +39,8 @@ class OLBFGSConfig:
     with rows ``[s_0, y_0, s_1, y_1, ...]``
     (:class:`~stochqn_tpu_torch.core.state.BFGSMemoryInterleaved`); it
     takes the same steps as the block layout to float tolerance.
-    ``pairs_bf16`` is kept so that a config means the same in both
-    packages; this package does not build such state yet
-    (``core.olbfgs.init`` raises).
+    ``pairs_bf16`` stores the pair rows in bfloat16 (the math stays in
+    the iterate's dtype): half the bytes every direction reads.
     """
 
     mem_size: int = 10
@@ -79,9 +78,9 @@ class SQNConfig:
     Reference: ``initialize_SQN`` at ``src/stochqn.c:483-506`` and
     ``SQN_free`` at ``stochqn/_optimizers.py:1048-1097``.
 
-    ``pairs_interleaved``: see :class:`OLBFGSConfig`.  ``pairs_bf16`` is
-    kept so that a config means the same in both packages; this package
-    does not build such state yet (``core.sqn.init`` raises).
+    ``pairs_interleaved`` and ``pairs_bf16``: see :class:`OLBFGSConfig`.
+    With bfloat16 pairs the collapsed direction runs on the streamed
+    direction kernel.
     """
 
     mem_size: int = 10
@@ -132,9 +131,11 @@ class AdaQNConfig:
     coupling's ``(Y*D) g`` / ``(Y*D) Y^T`` from the kernel.  ``None`` (the
     default) and ``False`` take the plain torch ``coupling`` route.
 
-    ``pairs_bf16`` and ``fisher_bf16`` are kept so that a config means the
-    same in both packages; this package does not build such state yet
-    (``core.adaqn.init`` raises).
+    ``pairs_bf16`` and ``fisher_bf16`` store the pair rows or the Fisher
+    rows in bfloat16 (the math stays in the iterate's dtype).  The
+    projection kernel takes float32 pairs only, so ``pairs_bf16`` takes
+    the plain ``coupling`` route whatever ``use_pallas`` says, as in the
+    JAX package; ``fisher_bf16`` alone keeps the kernel.
     """
 
     mem_size: int = 10

@@ -84,6 +84,16 @@ def resolve_device(device, what: str = "free mode") -> torch.device:
     return torch.device("cuda")
 
 
+def check_iterate_dtype(x0: torch.Tensor, what: str) -> None:
+    """The iterate of every state is float32 or float64; bfloat16 is a
+    storage option of the pair and Fisher memories (``pairs_bf16``,
+    ``fisher_bf16``), whose math stays in the iterate's dtype."""
+    if x0.dtype not in (torch.float32, torch.float64):
+        raise NotImplementedError(
+            f"{what} state is float32 or float64, got {x0.dtype} (for "
+            "bfloat16 memories pass pairs_bf16 / fisher_bf16)")
+
+
 def no_bad(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.bool, device=x.device)
 

@@ -40,9 +40,9 @@ import torch
 from stochqn_tpu_torch.core.config import SQNConfig
 from stochqn_tpu_torch.core.enums import Task
 from stochqn_tpu_torch.core.protocol import (NO_PROBLEMS, AdvanceResult,
-                                             commit_info, goto, host_ints,
-                                             no_bad, resume, scalar_like,
-                                             step_info)
+                                             check_iterate_dtype, commit_info,
+                                             goto, host_ints, no_bad, resume,
+                                             scalar_like, step_info)
 from stochqn_tpu_torch.core.state import SQNState
 from stochqn_tpu_torch.ops.pairs import (commit_pair, conditional_flush,
                                          direction_is_bad)
@@ -50,14 +50,8 @@ from stochqn_tpu_torch.ops.two_loop import two_loop_cached
 
 
 def init(x0: torch.Tensor, cfg: SQNConfig) -> SQNState:
-    if cfg.pairs_bf16:
-        raise NotImplementedError(
-            "bfloat16 pair state is not ported yet (ROADMAP A.13, slice 5)")
-    if x0.dtype not in (torch.float32, torch.float64):
-        raise NotImplementedError(
-            f"SQN state is float32 or float64, got {x0.dtype} "
-            "(bfloat16 state is ROADMAP A.13, slice 5)")
-    return SQNState.create(x0, cfg.mem_size,
+    check_iterate_dtype(x0, "SQN")
+    return SQNState.create(x0, cfg.mem_size, pairs_bf16=cfg.pairs_bf16,
                            pairs_interleaved=cfg.pairs_interleaved)
 
 

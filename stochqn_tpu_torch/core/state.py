@@ -24,6 +24,11 @@ or another field.
 
 There are no ``s_bak`` / ``y_bak`` backup buffers, as in the JAX package:
 a rejected pair is never committed.
+
+``pairs_bf16`` / ``fisher_bf16`` store the pair rows (``s``/``y`` or
+``sy``) or the Fisher rows in bfloat16; every other field, and all the
+math, stays in the iterate's dtype.  A row is rounded to nearest even
+when it is written, as ``jnp.astype`` rounds it.
 """
 from __future__ import annotations
 
@@ -193,6 +198,11 @@ class BFGSMemoryInterleaved:
         return dataclasses.replace(self, **changes)
 
 
+def _storage(bf16: bool):
+    """A memory's storage dtype: bfloat16, or (None) the iterate's."""
+    return torch.bfloat16 if bf16 else None
+
+
 def make_bfgs_memory(mem_size: int, n: int, dtype=torch.float32,
                      storage_dtype=None, interleaved: bool = False,
                      device=None):
@@ -213,6 +223,7 @@ class OLBFGSState:
 
     @classmethod
     def create(cls, x0: torch.Tensor, mem_size: int,
+               pairs_bf16: bool = False,
                pairs_interleaved: bool = False) -> "OLBFGSState":
         x0 = x0.detach().clone()          # owned: never the caller's buffer
         n = x0.shape[0]
@@ -220,6 +231,7 @@ class OLBFGSState:
         return cls(
             x=x0,
             mem=make_bfgs_memory(mem_size, n, x0.dtype,
+                                 _storage(pairs_bf16),
                                  interleaved=pairs_interleaved, device=dev),
             grad_prev=torch.zeros(n, dtype=x0.dtype, device=dev),
             niter=torch.zeros((), dtype=torch.int64, device=dev),
@@ -249,6 +261,7 @@ class SQNState:
 
     @classmethod
     def create(cls, x0: torch.Tensor, mem_size: int,
+               pairs_bf16: bool = False,
                pairs_interleaved: bool = False) -> "SQNState":
         x0 = x0.detach().clone()          # owned: never the caller's buffer
         n = x0.shape[0]
@@ -260,6 +273,7 @@ class SQNState:
         return cls(
             x=x0,
             mem=make_bfgs_memory(mem_size, n, x0.dtype,
+                                 _storage(pairs_bf16),
                                  interleaved=pairs_interleaved, device=dev),
             grad_prev=zeros_n(),
             x_sum=zeros_n(),
@@ -354,8 +368,9 @@ class AdaQNState:
     section: torch.Tensor      # int64 scalar (0..5)
 
     @classmethod
-    def create(cls, x0: torch.Tensor, mem_size: int,
-               fisher_size: int) -> "AdaQNState":
+    def create(cls, x0: torch.Tensor, mem_size: int, fisher_size: int,
+               pairs_bf16: bool = False,
+               fisher_bf16: bool = False) -> "AdaQNState":
         x0 = x0.detach().clone()          # owned: never the caller's buffer
         n = x0.shape[0]
         dev = x0.device
@@ -365,9 +380,10 @@ class AdaQNState:
 
         return cls(
             x=x0,
-            mem=BFGSMemory.create(mem_size, n, x0.dtype, device=dev),
+            mem=BFGSMemory.create(mem_size, n, x0.dtype,
+                                  _storage(pairs_bf16), device=dev),
             fisher=FisherMemory.create(max(fisher_size, 1), n, x0.dtype,
-                                       device=dev),
+                                       _storage(fisher_bf16), device=dev),
             grad_prev=zeros(n),
             x_sum=zeros(n),
             x_avg_prev=zeros(n),

@@ -1,11 +1,12 @@
 """Fused training engine for the three optimizers.
 
-Counterpart of :mod:`stochqn_tpu.fused` (its default paths: no paired
-gradients, no generic per-step layout).  An oLBFGS epoch is one
+Counterpart of :mod:`stochqn_tpu.fused`.  An oLBFGS epoch is one
 :func:`olbfgs_step` per minibatch: two same-batch gradients, the
 uncollapsed two-loop direction, guard, update and a pair commit every
-step.  An SQN or adaQN epoch runs as rounds of ``upd_freq`` (L)
-branch-free base steps followed once per round by the boundary:
+step (or, with ``paired_grads``, one batched gradient call per step and
+the commit deferred by one step: :func:`_olbfgs_epoch_paired`).  An SQN
+or adaQN epoch runs as rounds of ``upd_freq`` (L) branch-free base steps
+followed once per round by the boundary:
 
 * SQN: minibatch gradient, collapsed two-loop direction (the hand-written
   direction kernel on CUDA), NaN / magnitude guard, ``x`` / ``x_sum``
@@ -18,18 +19,30 @@ branch-free base steps followed once per round by the boundary:
   boundary the function-value guard on the average, then a pair commit
   with the empirical-Fisher (or big-batch gradient-difference) ``y``.
 
-``lax.scan`` becomes a Python loop.  Every accept/reject, flush and
-first-round decision is a device-side ``torch.where``: nothing in
-:meth:`FusedTrainer.epochs` with ``aligned=True`` reads a device tensor on
-the host, so the loop never waits for the device.
+That round-chunked layout needs ``B % L == 0`` and an epoch that starts
+on a round boundary.  Any other epoch takes the generic per-step layout
+(:meth:`FusedTrainer._epoch_generic`): the boundary runs after every step
+that ends a round, on the cyclic window of the last L minibatches.  When
+``B % L != 0`` that window can wrap into batches this epoch has not
+consumed yet, the shortcut the reference's ``_get_long_batch`` takes
+(``stochqn/_optimizers.py:66-69``) and the JAX package keeps.
+
+``lax.scan`` becomes a Python loop, and the JAX package's ``lax.cond`` on
+``niter % upd_freq`` a host branch on an iteration count the driver keeps
+on the host: the count is read from the state at most once per call
+(``aligned=None`` or ``False``; ``aligned=True`` asserts a round boundary
+and reads nothing) and then advanced by one per step.  Every
+accept/reject, flush and first-round decision is a device-side
+``torch.where``, so nothing inside an epoch waits for the device.
 
 The state is updated in place where that saves copying the pair memory:
 a commit rewrites one ring row pair of ``mem.s`` / ``mem.y`` (or of an
 interleaved ring-mode ``mem.sy``; ``ops.pairs.commit_pair``), and a
-ring-mode Fisher append one row of ``fisher.f``.  A state passed to
-:meth:`FusedTrainer.round`, :meth:`~FusedTrainer.epoch` or
-:meth:`~FusedTrainer.epochs` is therefore consumed, as the JAX package's
-with ``donate=True``; use the returned one.
+ring-mode Fisher append one row of ``fisher.f``.  A state passed to any
+driver (:meth:`FusedTrainer.round`, :meth:`~FusedTrainer.epoch`,
+:meth:`~FusedTrainer.epochs`, :meth:`~FusedTrainer.epochs_scheduled`,
+:meth:`~FusedTrainer.run_epochs`) is therefore consumed, as the JAX
+package's with ``donate=True``; use the returned one.
 
 Batches are tensors or (nested) tuples, lists or dicts of tensors with a
 leading example axis, and epoch data has leaves ``[B, bs, ...]``.
@@ -63,14 +76,16 @@ HessVecFn = Callable[[torch.Tensor, torch.Tensor, Batch], torch.Tensor]
 _FINC = int(Info.FUNC_INCREASED)
 
 
-def _tree_map(fn, batch):
-    if isinstance(batch, torch.Tensor):
-        return fn(batch)
+def _tree_map(fn, batch, *more):
+    """``fn`` over the leaves of a (nested) tuple, list or dict, or zipped
+    over the leaves of several batches of one structure."""
     if isinstance(batch, (tuple, list)):
-        return type(batch)(_tree_map(fn, v) for v in batch)
+        return type(batch)(_tree_map(fn, *parts)
+                           for parts in zip(batch, *more))
     if isinstance(batch, dict):
-        return type(batch)((k, _tree_map(fn, v)) for k, v in batch.items())
-    raise TypeError(f"batch leaves must be tensors, got {type(batch)}")
+        return type(batch)((k, _tree_map(fn, batch[k], *(b[k] for b in more)))
+                           for k in batch)
+    return fn(batch, *more)
 
 
 def _first_leaf(batch) -> torch.Tensor:
@@ -89,6 +104,25 @@ def _flat(batch):
         a = a.transpose(0, 1)
         return a.reshape((-1,) + tuple(a.shape[2:]))
     return _tree_map(merge, batch)
+
+
+def _batch_at(data, i: int):
+    return _tree_map(lambda a: a[i], data)
+
+
+def _cyclic_window(data, i: int, window: int, num_batches: int):
+    """The last ``window`` minibatches ending at batch ``i`` (inclusive),
+    cyclic, merged as :func:`_flat` merges: the JAX package's take of rows
+    ``(i + 1 - window + arange(window)) mod B``.  ``i`` is a host int, so
+    the window is one slice, or two where it wraps, and no index tensor
+    is made."""
+    start = i + 1 - window
+
+    def take(a):
+        if start >= 0:
+            return a[start:i + 1]
+        return torch.cat([a[start % num_batches:], a[:i + 1]])
+    return _flat(_tree_map(take, data))
 
 
 def olbfgs_step(cfg: OLBFGSConfig, grad_fn: GradFn, state: OLBFGSState,
@@ -110,6 +144,51 @@ def olbfgs_step(cfg: OLBFGSConfig, grad_fn: GradFn, state: OLBFGSState,
     st = st.replace(mem=mem.replace(s_pending=state.mem.s_pending),
                     section=torch.ones_like(state.section))
     return st, commit_info(accepted | bad, step_info(bad))
+
+
+def _olbfgs_epoch_paired(cfg: OLBFGSConfig, grad_fn: GradFn,
+                         state: OLBFGSState, data, step_size: torch.Tensor
+                         ) -> Tuple[OLBFGSState, torch.Tensor]:
+    """An oLBFGS epoch with ONE batched gradient call per step instead of
+    two (``FusedTrainer(paired_grads=True)``; the JAX package's
+    ``_olbfgs_epoch_paired``).
+
+    Step ``k``'s second gradient ``grad(x_{k+1}, b_k)`` and step ``k+1``'s
+    first ``grad(x_{k+1}, b_{k+1})`` share their point, so one
+    ``torch.func.vmap(grad_fn, in_dims=(None, 0))`` over the stacked
+    ``[2, bs, ...]`` pair of batches gives both.  Pair ``k`` is therefore
+    committed at the start of step ``k + 1``, before its direction (where
+    the sequential step has it too); the first step's commit is vetoed,
+    as is any after a bad direction, and the epoch ends with one plain
+    gradient that commits the last pending pair.  ``x``, the memory, the
+    info codes and ``niter`` come out as :func:`olbfgs_step`'s, to the
+    rounding of the batched gradient; ``s_pending`` is the last candidate
+    (the sequential step leaves it as it came in)."""
+    num_batches = _first_leaf(data).shape[0]
+    # [B, 2, bs, ...]: row k pairs batch k-1 (the pending commit's) with k
+    paired = _tree_map(
+        lambda a: torch.stack([torch.roll(a, 1, dims=0), a], dim=1), data)
+    pair_grads = torch.func.vmap(grad_fn, in_dims=(None, 0))
+    pend_g = torch.zeros_like(state.x)
+    pend_ok = no_bad(state.x)
+    bads, accs = [], []
+    for k in range(num_batches):
+        g_pair = pair_grads(state.x, _batch_at(paired, k))
+        mem, acc = commit_pair(state.mem, g_pair[0] - pend_g,
+                               cfg.min_curvature, cfg.y_reg, enabled=pend_ok)
+        state, bad = olbfgs.step(cfg, state.replace(mem=mem), g_pair[1],
+                                 step_size)
+        state = state.replace(section=torch.ones_like(state.section))
+        pend_g, pend_ok = g_pair[1], torch.logical_not(bad)
+        bads.append(bad)
+        accs.append(acc)
+    g2_last = grad_fn(state.x, _batch_at(data, num_batches - 1))
+    mem, acc = commit_pair(state.mem, g2_last - pend_g, cfg.min_curvature,
+                           cfg.y_reg, enabled=pend_ok)
+    accs = torch.stack(accs[1:] + [acc])
+    bads = torch.stack(bads)
+    return (state.replace(mem=mem),
+            commit_info(accs | bads, step_info(bads)))
 
 
 def _sqn_base(cfg: SQNConfig, grad_fn: GradFn, state: SQNState,
@@ -231,6 +310,37 @@ def _adaqn_boundary(cfg: AdaQNConfig, grad_fn: GradFn,
     return st, info.to(torch.int32)
 
 
+def sqn_step(cfg: SQNConfig, grad_fn: GradFn, state: SQNState, batch: Batch,
+             big_batch_thunk: Callable[[], Batch], step_size: torch.Tensor,
+             boundary: bool, hess_vec_fn: Optional[HessVecFn] = None
+             ) -> Tuple[SQNState, torch.Tensor]:
+    """One SQN iteration of the generic layout.  ``boundary`` is the JAX
+    package's ``lax.cond`` predicate ``niter % upd_freq == 0`` after this
+    step, decided by the caller on its host count of iterations (never
+    read from ``state.niter``)."""
+    state, bad = _sqn_base(cfg, grad_fn, state, batch, step_size)
+    if not boundary:
+        return state, step_info(bad)
+    return _sqn_boundary(cfg, grad_fn, state, big_batch_thunk(), bad,
+                         hess_vec_fn)
+
+
+def adaqn_step(cfg: AdaQNConfig, grad_fn: GradFn, obj_fn: Optional[ObjFn],
+               state: AdaQNState, batch: Batch,
+               big_batch_thunk: Callable[[], Batch],
+               fval_batch_thunk: Callable[[], Batch], step_size: torch.Tensor,
+               boundary: bool) -> Tuple[AdaQNState, torch.Tensor]:
+    """One adaQN iteration of the generic layout; ``boundary`` as in
+    :func:`sqn_step`."""
+    if cfg.max_incr > 0 and obj_fn is None:
+        raise ValueError("adaQN with max_incr needs an objective function")
+    state, bad = _adaqn_base(cfg, grad_fn, state, batch, step_size)
+    if not boundary:
+        return state, step_info(bad)
+    return _adaqn_boundary(cfg, grad_fn, obj_fn, state, big_batch_thunk(),
+                           fval_batch_thunk(), bad)
+
+
 @dataclasses.dataclass
 class FusedTrainer:
     """Fused trainer for any of the three optimizers.
@@ -248,6 +358,9 @@ class FusedTrainer:
       hess_vec_fn: optional ``hess_vec_fn(x, v, big_batch) -> [n]`` used by
         SQN's boundary in place of ``torch.func.jvp`` of ``grad_fn``;
         ignored for adaQN and with ``cfg.use_grad_diff``.
+      paired_grads: oLBFGS only: one batched gradient call per step
+        (:func:`_olbfgs_epoch_paired`) instead of two.  The same steps;
+        off by default, as in the JAX package (PERF.md has its times).
     """
 
     optimizer: str
@@ -256,6 +369,7 @@ class FusedTrainer:
     obj_fn: Optional[ObjFn] = None
     val_data: Optional[Batch] = None
     hess_vec_fn: Optional[HessVecFn] = None
+    paired_grads: bool = False
 
     def __post_init__(self):
         kind = self.optimizer
@@ -296,16 +410,15 @@ class FusedTrainer:
         if self.optimizer == "oLBFGS":
             infos = []
             for i in range(L):
-                state, info = olbfgs_step(
-                    self.cfg, self.grad_fn, state,
-                    _tree_map(lambda a: a[i], round_data), eta)
+                state, info = olbfgs_step(self.cfg, self.grad_fn, state,
+                                          _batch_at(round_data, i), eta)
                 infos.append(info)
             return state, torch.stack(infos)
         base = _sqn_base if self.optimizer == "SQN" else _adaqn_base
         bads = []
         for i in range(L):
             state, bad = base(self.cfg, self.grad_fn, state,
-                              _tree_map(lambda a: a[i], round_data), eta)
+                              _batch_at(round_data, i), eta)
             bads.append(bad)
         big = _flat(round_data)
         if self.optimizer == "SQN":
@@ -326,38 +439,85 @@ class FusedTrainer:
             lambda a: a.reshape((rounds, L) + tuple(a.shape[1:])), data)
         infos = []
         for r in range(rounds):
-            state, inf = self.round(
-                state, _tree_map(lambda a: a[r], data_r), step_size)
+            state, inf = self.round(state, _batch_at(data_r, r), step_size)
             infos.append(inf)
         return state, torch.cat(infos)
 
-    def epoch(self, state, data, step_size, aligned=None
-              ) -> Tuple[Any, torch.Tensor]:
-        """Run one epoch over ``data`` (leaves ``[B, bs, ...]``) in the
-        round-chunked layout.  Returns ``(state, infos[B])``.
+    def _epoch_generic(self, state, data, step_size, phase: int
+                       ) -> Tuple[Any, torch.Tensor]:
+        """One epoch of per-step iterations, starting ``phase`` steps into
+        a round (``niter % upd_freq``, known on the host); the boundary
+        follows each step that ends a round, on the cyclic window of the
+        last ``upd_freq`` minibatches (fewer when the epoch has fewer)."""
+        num_batches = _first_leaf(data).shape[0]
+        L = self.cfg.upd_freq
+        window = min(L, num_batches)
+        eta = scalar_like(step_size, state.x)
+        infos = []
+        for i in range(num_batches):
+            phase = (phase + 1) % L
 
-        The layout needs ``B % upd_freq == 0`` and an epoch that starts on
-        a round boundary (``niter % upd_freq == 0``).  ``aligned=True``
-        asserts the latter without reading ``niter``; ``None`` reads it
-        once (a host sync).  Other layouts need the generic per-step
-        path, which is not ported yet (ROADMAP A.10, slice 2): they
-        raise.  An oLBFGS epoch has no boundary, so any ``B`` and any
-        ``niter`` will do and ``aligned`` is ignored."""
+            def big(i=i):
+                return _cyclic_window(data, i, window, num_batches)
+            if self.optimizer == "SQN":
+                state, info = sqn_step(self.cfg, self.grad_fn, state,
+                                       _batch_at(data, i), big, eta,
+                                       phase == 0, self.hess_vec_fn)
+            else:
+                fval = ((lambda: self.val_data)
+                        if self.val_data is not None else big)
+                state, info = adaqn_step(self.cfg, self.grad_fn, self.obj_fn,
+                                         state, _batch_at(data, i), big,
+                                         fval, eta, phase == 0)
+            infos.append(info)
+        return state, torch.stack(infos)
+
+    def _phase(self, state, aligned) -> int:
+        """``niter % upd_freq`` at the start of a call: 0 where the caller
+        asserts a round boundary (``aligned=True``) and for oLBFGS (no
+        boundary), else read from the state (one host read)."""
+        if aligned is True or self.optimizer == "oLBFGS":
+            return 0
+        return int(state.niter) % self.cfg.upd_freq
+
+    def _epoch_at(self, state, data, step_size, phase: int, generic: bool):
+        """One epoch starting ``phase`` steps into a round: for SQN and
+        adaQN round-chunked where the layout allows it and ``generic`` is
+        not forced, else per step."""
         if self.optimizer == "oLBFGS":
+            if self.paired_grads:
+                return _olbfgs_epoch_paired(self.cfg, self.grad_fn, state,
+                                            data,
+                                            scalar_like(step_size, state.x))
             return self.round(state, data, step_size)
         num_batches = _first_leaf(data).shape[0]
         L = self.cfg.upd_freq
-        if num_batches % L != 0 or aligned is False:
-            raise NotImplementedError(
-                f"an epoch of {num_batches} batches with upd_freq={L} "
-                "(or aligned=False) needs the generic per-step path, which "
-                "is not ported yet (ROADMAP A.10, slice 2)")
-        if aligned is None and int(state.niter) % L != 0:
-            raise NotImplementedError(
-                "this epoch starts mid-round (niter % upd_freq != 0) and "
-                "needs the generic per-step path, which is not ported yet "
-                "(ROADMAP A.10, slice 2)")
+        if generic or phase != 0 or num_batches % L != 0:
+            return self._epoch_generic(state, data, step_size, phase)
         return self._epoch_chunked(state, data, step_size, num_batches, L)
+
+    def epoch(self, state, data, step_size, aligned=None
+              ) -> Tuple[Any, torch.Tensor]:
+        """Run one epoch over ``data`` (leaves ``[B, bs, ...]``).  Returns
+        ``(state, infos[B])``.
+
+        An SQN or adaQN epoch takes the round-chunked layout when
+        ``B % upd_freq == 0`` and it starts on a round boundary
+        (``niter % upd_freq == 0``), else the generic per-step layout;
+        both give the same steps.  ``aligned`` says what is known of the
+        start:
+
+        * ``True``: the caller asserts a round boundary; nothing is read
+          on the host;
+        * ``False``: force the generic layout; ``niter`` is read once;
+        * ``None`` (default): ``niter`` is read once and decides, the
+          torch form of the JAX package's ``lax.cond`` on
+          ``niter % upd_freq``.
+
+        An oLBFGS epoch has no boundary, so any ``B`` and any ``niter``
+        will do and ``aligned`` is ignored."""
+        return self._epoch_at(state, data, step_size,
+                              self._phase(state, aligned), aligned is False)
 
     def epochs(self, state, data, step_size, nepochs: int,
                aligned=None) -> Tuple[Any, torch.Tensor]:
@@ -366,19 +526,95 @@ class FusedTrainer:
         package.  ``step_size`` is a scalar (same step every epoch) or a
         ``[nepochs]`` schedule.  Returns ``(state, infos[nepochs, B])``.
 
-        Alignment is resolved once, before the first epoch (see
-        :meth:`epoch`); with ``aligned=True`` no device value is read on
-        the host (nor with oLBFGS, whose epochs are all aligned)."""
+        Alignment is resolved once, before the first epoch (``aligned`` as
+        in :meth:`epoch`); the host count then advances by ``B`` per epoch,
+        so with ``aligned=True`` (or oLBFGS) no device value is read on
+        the host at all."""
         steps = torch.broadcast_to(scalar_like(step_size, state.x),
                                    (nepochs,))
-        if aligned is None and self.optimizer != "oLBFGS":
-            L = self.cfg.upd_freq
-            aligned = int(state.niter) % L == 0
+        return self._drive(state, [data] * nepochs, steps, aligned)
+
+    def _drive(self, state, epoch_data, steps, aligned):
+        """The epochs of ``epoch_data`` (an iterable of batched data, one
+        per epoch) at ``steps[e]``, alignment resolved once."""
+        phase = self._phase(state, aligned)
         infos = []
-        for e in range(nepochs):
-            state, inf = self.epoch(state, data, steps[e], aligned=aligned)
+        for e, data in enumerate(epoch_data):
+            state, inf = self._epoch_at(state, data, steps[e], phase,
+                                        aligned is False)
+            phase = (phase + _first_leaf(data).shape[0]) % self.cfg.upd_freq
             infos.append(inf)
         return state, torch.stack(infos)
+
+    def epochs_scheduled(self, state, flat_data, step_sizes, orders,
+                         batch_size: int, aligned=None
+                         ) -> Tuple[Any, torch.Tensor]:
+        """Epochs over a precomputed schedule — the counterpart of the
+        function ``jit_epochs_scheduled()`` returns in the JAX package.
+
+        ``flat_data`` leaves are unbatched ``[n_rows, ...]``; ``orders
+        [nepochs, B * batch_size]`` holds each epoch's row indices in
+        batch order and ``step_sizes [nepochs]`` its step size (a scalar:
+        the same every epoch).  Each epoch is one gather on the data's
+        device, ``a[order].reshape(B, batch_size, ...)``, then
+        :meth:`epoch`.  Keep ``orders`` and ``step_sizes`` on the state's
+        device: copying them there from the host waits for the device.
+        Returns ``(state, infos[nepochs, B])``."""
+        orders = torch.as_tensor(orders, device=_first_leaf(flat_data).device)
+        nepochs, rows = orders.shape
+        if rows % batch_size:
+            raise ValueError(
+                f"orders.shape[1]={rows} must be a multiple of "
+                f"batch_size={batch_size} (each epoch row lists exactly the "
+                "gathered batch rows)")
+        nbatch = rows // batch_size
+        steps = torch.broadcast_to(scalar_like(step_sizes, state.x),
+                                   (nepochs,))
+
+        def gathered(e):
+            return _tree_map(lambda a: a.index_select(0, orders[e]).reshape(
+                (nbatch, batch_size) + tuple(a.shape[1:])), flat_data)
+        return self._drive(state, (gathered(e) for e in range(nepochs)),
+                           steps, aligned)
+
+    def run_epochs(self, state, data, nepochs: int, step_size,
+                   decr_step_size=None, shuffle=None
+                   ) -> Tuple[Any, torch.Tensor]:
+        """Host loop over epochs of pre-batched ``data`` (leaves
+        ``[B, bs, ...]``).  ``decr_step_size(step0, epoch)`` gives each
+        epoch's step size, as the guided schedule hook does.  ``shuffle``,
+        a ``torch.Generator`` on the data's device, reshuffles the rows of
+        the whole epoch before each epoch (:func:`shuffle_batched`, from
+        the unshuffled ``data`` every time).  ``niter`` is read once, before
+        the first epoch, and the host count then advances by ``B`` per
+        epoch, so any start, mid-round included, takes its boundaries
+        where the JAX package's do.
+
+        The passed-in ``state`` is consumed, as the JAX package's with
+        ``donate=True``; the JAX package's ``run_epochs`` keeps it by
+        default."""
+        def epoch_data():
+            for _ in range(nepochs):
+                yield data if shuffle is None else shuffle_batched(data,
+                                                                   shuffle)
+        steps = [scalar_like(step_size if decr_step_size is None
+                             else decr_step_size(step_size, e), state.x)
+                 for e in range(nepochs)]
+        return self._drive(state, epoch_data(), steps, None)
+
+
+def shuffle_batched(data, generator: torch.Generator):
+    """Shuffle example rows across the whole epoch, keeping the batching:
+    one ``torch.randperm`` of ``B * bs`` rows from ``generator`` (on the
+    data's device), applied to every leaf."""
+    nb, bs = _first_leaf(data).shape[:2]
+    perm = torch.randperm(nb * bs, generator=generator,
+                          device=generator.device)
+
+    def shuf(a):
+        flat = a.reshape((nb * bs,) + tuple(a.shape[2:]))
+        return flat.index_select(0, perm).reshape(a.shape)
+    return _tree_map(shuf, data)
 
 
 def batchify(data, batch_size: int):

@@ -391,8 +391,13 @@ def test_device_dtype_and_backend_arguments():
     opt = adaQN_free(device=CPU, fisher_size=None)
     assert opt.use_grad_diff and opt.max_incr == 1.01
     assert opt.bfgs_upd_freq == 20
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        SQN_free(device=CPU, pairs_bf16=True).run_optimizer(np.zeros(3), 0.1)
+    opt = SQN_free(device=CPU, pairs_bf16=True)
+    opt.run_optimizer(np.zeros(3), 0.1)
+    assert opt.state.mem.s.dtype == torch.bfloat16
+    assert opt.state.x.dtype == torch.float64
+    with pytest.raises(NotImplementedError, match="pairs_bf16"):
+        SQN_free(device=CPU, dtype=torch.bfloat16).run_optimizer(
+            np.zeros(3, np.float32), 0.1)
     with pytest.raises(ValueError, match="rmsprop_weight"):
         adaQN_free(device=CPU, rmsprop_weight=1.5)
 

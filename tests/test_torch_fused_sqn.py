@@ -195,29 +195,46 @@ def test_nan_step_flushes_on_both_sides():
 
 
 def test_unaligned_layouts_raise():
+    """The layouts the round-chunked path cannot take (6 % 4 != 0, a
+    mid-round start) no longer raise: they take the generic per-step
+    layout, the one ``aligned=False`` forces (tests/
+    test_torch_fused_generic.py holds it against the JAX package).  What
+    still raises is a schedule whose rows do not make whole batches."""
     X, Y, x0 = _data()
     _, ttr = _trainers("jvp", {})
-    state = ttr.init(torch.from_numpy(x0))
-    data = (torch.from_numpy(X[:6]), torch.from_numpy(Y[:6]))   # 6 % 4 != 0
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        ttr.epochs(state, data, ETA, nepochs=1)
-    mid_round = dataclasses.replace(state, niter=torch.tensor(2))
+
+    def run(data, niter, aligned):
+        state = dataclasses.replace(ttr.init(torch.from_numpy(x0)),
+                                    niter=torch.tensor(niter))
+        return ttr.epochs(state, data, ETA, nepochs=1, aligned=aligned)
+    short = (torch.from_numpy(X[:6]), torch.from_numpy(Y[:6]))   # 6 % 4 != 0
     full = (torch.from_numpy(X), torch.from_numpy(Y))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        ttr.epochs(mid_round, full, ETA, nepochs=1)
+    for data, niter in ((short, 0), (full, 2)):
+        (sa, ia), (sg, ig) = run(data, niter, None), run(data, niter, False)
+        assert torch.equal(ia, ig) and torch.equal(sa.x, sg.x)
+        assert bool(torch.isfinite(sa.x).all())
+    with pytest.raises(ValueError, match="multiple of batch_size"):
+        ttr.epochs_scheduled(ttr.init(torch.from_numpy(x0)), full[0][0],
+                             ETA, torch.zeros((1, 3), dtype=torch.int64),
+                             batch_size=BS)
 
 
 @pytest.mark.parametrize("optimizer", ["oLBFGS", "adaQN"])
 def test_unported_optimizers_raise(optimizer):
-    """oLBFGS and adaQN are ported, but not their bfloat16 state."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        if optimizer == "oLBFGS":
-            FusedTrainer(optimizer, OLBFGSConfig.create(pairs_bf16=True),
-                         _torch_grad).init(torch.zeros(3))
-        else:
-            FusedTrainer(optimizer, AdaQNConfig.create(
-                max_incr=None, fisher_bf16=True), _torch_grad).init(
-                    torch.zeros(3))
+    """bfloat16 memories are built (pairs_bf16, fisher_bf16); a bfloat16
+    iterate is not, and raises."""
+    if optimizer == "oLBFGS":
+        trainer = FusedTrainer(optimizer, OLBFGSConfig.create(
+            pairs_bf16=True), _torch_grad)
+        assert trainer.init(torch.zeros(3)).mem.s.dtype == torch.bfloat16
+    else:
+        trainer = FusedTrainer(optimizer, AdaQNConfig.create(
+            max_incr=None, fisher_bf16=True), _torch_grad)
+        st = trainer.init(torch.zeros(3))
+        assert st.fisher.f.dtype == torch.bfloat16
+        assert st.mem.s.dtype == torch.float32
+    with pytest.raises(NotImplementedError, match="pairs_bf16"):
+        trainer.init(torch.zeros(3, dtype=torch.bfloat16))
 
 
 def _init_trainer(optimizer):

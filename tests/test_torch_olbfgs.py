@@ -227,9 +227,9 @@ def test_olbfgs_free_arguments():
             oLBFGS_free()
     with pytest.raises(NotImplementedError, match="ROADMAP A.16"):
         oLBFGS_free(backend="native", device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        oLBFGS_free(pairs_bf16=True, device=CPU).run_optimizer(np.zeros(3),
-                                                               0.1)
+    opt = oLBFGS_free(pairs_bf16=True, pairs_interleaved=True, device=CPU)
+    opt.run_optimizer(np.zeros(3), 0.1)
+    assert opt.state.mem.sy.dtype == torch.bfloat16
     with pytest.raises(ValueError, match="mem_size"):
         oLBFGS_free(mem_size=0, device=CPU)
     with pytest.raises(ValueError, match="hess_init"):
@@ -481,9 +481,11 @@ def test_fused_olbfgs_init_devices(kind):
 def test_trainer_checks_the_config():
     with pytest.raises(TypeError, match="OLBFGSConfig"):
         FusedTrainer("oLBFGS", SQNConfig(), _torch_grad)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        FusedTrainer("oLBFGS", OLBFGSConfig.create(pairs_bf16=True),
-                     _torch_grad).init(torch.zeros(3))
+    trainer = FusedTrainer("oLBFGS", OLBFGSConfig.create(pairs_bf16=True),
+                           _torch_grad)
+    assert trainer.init(torch.zeros(3)).mem.s.dtype == torch.bfloat16
+    with pytest.raises(NotImplementedError, match="pairs_bf16"):
+        trainer.init(torch.zeros(3, dtype=torch.bfloat16))
 
 
 # --- ROADMAP queue C -------------------------------------------------------
