@@ -125,6 +125,24 @@ Phases (each failure raises and exits non-zero; nothing is caught):
     ``prefetch_to_device`` against ``epochs``, bit for bit; oLBFGS with
     ``paired_grads=True`` against the sequential layout (codes; ``x`` in
     float64), timed in turns.
+18. The front ends on the same draws flattened to 6,000 rows, numpy in
+    and no device named (``tools/jax_front_end_references.py`` prints the
+    JAX numbers): (a) ``StochasticLogisticRegression`` fused SQN, every
+    epoch under sync debug mode "error", one launch per step of the
+    direction kernel the gate chose and no plain version, the JAX loss;
+    (b) the guided ``SQN`` on the protocol engine for an epoch (the request
+    order, one launch per step, ``x`` against the fused engine on the same
+    batches, the JAX loss); (c) the guided ``SQN`` fused, one scheduled
+    dispatch of 2 shuffled epochs, the JAX loss; (d) the model's adaQN
+    with ``use_pallas=True`` (``project_adaqn`` per step; float32 within
+    1e-2 and float64 within 1e-6 of the JAX float64 loss); (e) the model's
+    oLBFGS; (f) the model's SQN on a CSR matrix against its densified copy;
+    (g) ``minimize`` from a numpy ``x0`` and ``MLPClassifier(hidden=(64,))``;
+    (h) ``OLBFGS`` as a ``torch.optim.Optimizer`` for 20 steps; (i)
+    ``save_state`` mid-protocol, ``load_state`` into a fresh ``SQN_free``,
+    the next 10 requests bit for bit; (j) the model's fused fit in turns
+    with bare ``FusedTrainer`` runs of the same steps, and the host wall of
+    a protocol request.
 
 The last two lines are the kernels' JSON record and the contract line
 ``{"ok": true, "device": {...}}``; the card's ``nvidia-smi`` line is
@@ -149,14 +167,17 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from stochqn_tpu_torch import (AdaQNConfig, FusedTrainer,  # noqa: E402
-                               OLBFGSConfig, SQN_free, SQNConfig, adaQN_free,
-                               oLBFGS_free)
+                               OLBFGS, OLBFGSConfig, SQN, SQN_free, SQNConfig,
+                               StochasticLogisticRegression, adaQN_free,
+                               load_state, minimize, oLBFGS_free, save_state)
 from stochqn_tpu_torch.core.state import (BFGSMemory,  # noqa: E402
                                           BFGSMemoryInterleaved,
                                           SHIFT_MAX_BYTES)
 from stochqn_tpu_torch.fused import (_adaqn_boundary, _flat,  # noqa: E402
                                      _sqn_boundary, olbfgs_step)
 from stochqn_tpu_torch.models import losses  # noqa: E402
+from stochqn_tpu_torch.models.mlp import (MLPClassifier,  # noqa: E402
+                                          init_mlp_params, mlp_loss)
 from stochqn_tpu_torch.ops.accumulators import diag_rescal  # noqa: E402
 from stochqn_tpu_torch.ops.kernels import two_loop_kernel as tlk  # noqa: E402
 from stochqn_tpu_torch.ops.pairs import commit_pair, fisher_y  # noqa: E402
@@ -395,6 +416,49 @@ JAX_OLBFGS_BF16_F64_LOSS = 109_025.26315829599
 # oLBFGS paired gradients against the sequential layout: the same steps,
 # held in float64 to tests/test_fused.py:418's tolerances.
 PAIRED_RTOL, PAIRED_ATOL = 1e-6, 1e-9
+# Phase 18, the front ends, on the same draws flattened to 6,000 rows: the
+# JAX package on the CPU (tools/jax_front_end_references.py [--f64] prints
+# every number below, float32 and float64):
+# - StochasticLogisticRegression(**FE_MODEL_KW) (the model's defaults
+#   reg_param 1e-3 and step_size 0.1, w0 from np.random.seed(1)), the
+#   model's objective on all rows (mean log-loss + 0.5e-3 ||coef||^2)
+#   after 2 epochs: SQN (bfgs_upd_freq=20) 3.3075080 (float64 3.3075112,
+#   9.7e-7 away), 10 live pairs; oLBFGS 3.2403793 (float64 3.2393468,
+#   3.2e-4 away), both held within LOSS_RTOL of the float32 run;
+# - adaQN with fisher_size=100, rmsprop_weight=0.9, step_size=0.1,
+#   bfgs_upd_freq=20: float64 113.74461810931375 (held within F64_RTOL),
+#   float32 with coupling "gram" (the kernel route's math) 113.74084
+#   (3.3e-5 from float64); the port's float32 kernel route is held within
+#   FINAL_RTOL of the float64 loss, as phase 7 holds adaQN;
+# - the guided SQN(x0, grad, obj, hess_vec, batches_per_epoch=120,
+#   step_size=1e-2, mem_size=10, bfgs_upd_freq=20, use_float=True),
+#   default shuffle (numpy's, shared by both packages) and "auto" decay,
+#   summed loss (reg 0.1) on all rows: the protocol engine, 1 epoch,
+#   515,010.97 (float64 515,011.92, 1.8e-6 away), 5 live pairs; the fused
+#   engine, 2 epochs in one scheduled dispatch, 469,410.44 (float64
+#   469,411.41, 2.1e-6 away), 10 live pairs; both held within LOSS_RTOL.
+FE_MODEL_KW = dict(engine="fused", valset_frac=None,
+                   batches_per_epoch=NUM_BATCHES, nepochs=2,
+                   shuffle_data=False, decr_step_size=None, mem_size=MEM_SIZE)
+FE_MODEL_STEP = 1e-1
+JAX_FE_LOSS = {"logistic_sqn": 3.3075079917907715,
+               "logistic_olbfgs": 3.2403793334960938,
+               "guided_protocol_sqn_1_epoch": 515_010.96875,
+               "guided_fused_sqn_2_epochs": 469_410.4375}
+JAX_FE_ADAQN_LOSS = 113.7408447265625
+JAX_FE_ADAQN_F64_LOSS = 113.74461810931375
+# (f): a CSR matrix of the same shape from default_rng(1), FE_DENSITY of
+# its entries standard normal, held against the fit of its densified copy
+# (index_add's atomics sum the sparse gradients in another order on every
+# run) within FE_SPARSE_RTOL, in the loss and in x relative to max |x|.
+# The port on the CPU: 2.0e-6 in x, the same loss to all printed digits.
+FE_DENSITY = 0.01
+FE_SPARSE_RTOL = 1e-4
+# (g): at its default step 0.1 the MLP climbs on this unscaled data (the
+# JAX package's MLPClassifier(hidden=(64,)), 2 epochs on the CPU: mean
+# log-loss 6.05 -> 41.04), at 0.01 it falls (6.05 -> 3.37); the phase
+# takes 0.01 and checks that the loss falls and stays finite.
+FE_MLP_STEP = 1e-2
 
 
 @contextlib.contextmanager
@@ -1445,14 +1509,21 @@ class FreeLoop:
     gradients, Hessian-vector products and function values are computed
     there and handed over as device tensors."""
 
-    def __init__(self, opt, X, Y, x0, step, audit=None):
+    def __init__(self, opt, X, Y, x0, step, audit=None, resume=None):
+        """``resume``: ``(req, b)``, a pending request and the minibatch
+        count of a loop that was stopped, to continue it on ``opt`` (whose
+        state is that loop's) from ``x0``, with no priming call."""
         self.opt, self.X, self.Y, self.step = opt, X, Y, step
-        self.x = x0.cpu().numpy().copy()
+        self.x = np.array(x0.cpu().numpy() if isinstance(x0, torch.Tensor)
+                          else x0, copy=True)
         self.audit = audit
         self.tasks, self.infos, self.fvals, self.audits = [], [], [], []
         self.call_ms = {}
         self.b = -1
-        self.req = self._run()
+        if resume is None:
+            self.req = self._run()
+        else:
+            self.req, self.b = resume
 
     def _run(self):
         t0 = time.perf_counter()
@@ -2537,6 +2608,403 @@ def drivers_phase(dev):
                 paired_iters_per_s=paired_ips, paired_idle_share=paired_idle)
 
 
+# ---------------------------------------------------------------------------
+def front_end_data():
+    """Phase 18's data on the host, as a user has it: bench_data's draws
+    (numpy's default_rng(1), the same stream) flattened to 6,000 rows, the
+    labels as integers and one-hot rows, bench.py's x0."""
+    rng = np.random.default_rng(1)
+    X = rng.standard_normal((NUM_BATCHES * BATCH_SIZE, N_FEATURES)).astype(
+        np.float32)
+    labels = rng.integers(0, N_CLASSES, NUM_BATCHES * BATCH_SIZE)
+    Y = np.eye(N_CLASSES, dtype=np.float32)[labels]
+    x0 = rng.standard_normal(N_FLAGSHIP).astype(np.float32)
+    return X, Y, labels, x0
+
+
+def model_loss(x, X, Y):
+    """The logistic model's objective on all rows: the mean log-loss
+    (sample weights 1/n) and 0.5 * reg_param * ||coef||^2, reg_param 1e-3
+    (the model's default)."""
+    x = torch.as_tensor(x, device=X.device, dtype=X.dtype)
+    w = torch.full((X.shape[0],), 1.0 / X.shape[0], dtype=X.dtype,
+                   device=X.device)
+    return float(losses.multinomial_logistic_loss(x, X, Y, w, 1e-3))
+
+
+def guided_callables(dev):
+    """The guided callables of phase 18: the port's closed-form losses
+    (summed, reg 0.1), computed on the card.  The protocol engine hands
+    them numpy arrays, which go to the card; the fused engine hands them
+    tensors on the card, used where they are."""
+    def t(a):
+        if isinstance(a, torch.Tensor):
+            return a
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    def grad(x, Xb, Yb, sample_weight=None):
+        return losses.multinomial_logistic_grad(t(x), t(Xb), t(Yb), None, REG)
+
+    def obj(x, Xb, Yb, sample_weight=None):
+        return losses.multinomial_logistic_loss(t(x), t(Xb), t(Yb), None, REG)
+
+    def hess_vec(x, v, Xb, Yb, sample_weight=None):
+        return losses.multinomial_logistic_hessvec(t(x), t(v), t(Xb), t(Yb),
+                                                   None, REG)
+    return grad, obj, hess_vec
+
+
+@contextlib.contextmanager
+def epochs_without_host_sync():
+    """Every epoch a fused driver runs inside (``FusedTrainer._epoch_at``,
+    which ``epoch``, ``epochs`` and ``epochs_scheduled`` all call) runs
+    under sync debug mode "error": a host sync inside an epoch raises.
+    Yields the list of epochs run."""
+    orig = FusedTrainer._epoch_at
+    seen = []
+
+    def epoch_at(self, *args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = orig(self, *args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        seen.append(self.optimizer)
+        return out
+    FusedTrainer._epoch_at = epoch_at
+    try:
+        yield seen
+    finally:
+        FusedTrainer._epoch_at = orig
+
+
+def driven(what, fn, kernel, launches, no_sync=True):
+    """Drive one path with every count at 0 and the plain versions spied
+    on: ``fn()`` must launch ``kernel`` ``launches`` times (no kernel when
+    ``kernel`` is None), no other kernel and no plain version.  Returns
+    ``fn()``'s value and the counts read just after."""
+    torch.cuda.synchronize()
+    calls, restore = spy_plain()
+    reset_launches()
+    with (epochs_without_host_sync() if no_sync
+          else contextlib.nullcontext()) as epochs:
+        out = fn()
+    counts = read_launches()
+    restore()
+    got = counts.pop(kernel) if kernel is not None else 0
+    check(got == launches and not any(counts.values()) and not calls,
+          f"{what}: {kernel} launched {got} times (want {launches}), "
+          f"other kernels {counts}, plain versions {len(calls)}"
+          + (f", {len(epochs)} epochs with no host sync" if no_sync else ""))
+    return out, got
+
+
+def loss_near(what, loss, want, rtol):
+    rel = abs(loss - want) / abs(want)
+    check(np.isfinite(loss) and rel <= rtol,
+          f"{what}: loss {loss:.7g} vs JAX package {want:.7g} (CPU): rel "
+          f"diff {rel:.3e} <= {rtol}")
+    return rel
+
+
+def front_end_phase(dev):
+    phase("18. the front ends at BibTeX shape: StochasticLogisticRegression,"
+          " guided SQN, minimize, MLP, OLBFGS, checkpoints")
+    X, Y, labels, x0 = front_end_data()
+    Xd, Yd = torch.from_numpy(X).to(dev), torch.from_numpy(Y).to(dev)
+    chosen, _ = gate_choice(MEM_SIZE, N_FLAGSHIP, dev)
+    steps = 2 * NUM_BATCHES
+    out = {"launches": {}, "losses": {}}
+
+    # (a) the logistic model, fused SQN, no device named
+    clf, out["launches"]["logistic_fused_sqn"] = driven(
+        "(a) StochasticLogisticRegression SQN fused",
+        lambda: StochasticLogisticRegression(
+            optimizer="SQN", bfgs_upd_freq=UPD_FREQ, **FE_MODEL_KW).fit(X, Y),
+        chosen, steps)
+    st = clf._fused_state
+    check(clf.optimizer is None and st.x.device.type == "cuda"
+          and st.mem.s.device.type == "cuda" and int(st.niter) == steps,
+          "(a) the fit ran on the fused engine (not the protocol loop), the "
+          f"state on the card, niter {int(st.niter)}")
+    loss = model_loss(clf.x_, Xd, Yd)
+    out["losses"]["logistic_sqn"] = loss
+    loss_near("(a) logistic SQN", loss, JAX_FE_LOSS["logistic_sqn"], LOSS_RTOL)
+    check(int(st.mem.count) == MEM_SIZE, f"(a) {MEM_SIZE} live pairs")
+    prob = clf.predict_proba(X[:5])
+    check(prob.shape == (5, N_CLASSES) and np.isfinite(prob).all(),
+          "(a) predict_proba: finite, [5, 159]")
+
+    # (b) the guided SQN on the protocol engine, one epoch
+    grad, obj, hess_vec = guided_callables(dev)
+
+    def guided(nepochs, **kw):
+        return SQN(x0, grad, obj_fun=obj, hess_vec_fun=hess_vec,
+                   batches_per_epoch=NUM_BATCHES, step_size=STEP,
+                   nepochs=nepochs, mem_size=MEM_SIZE, bfgs_upd_freq=UPD_FREQ,
+                   use_float=True, verbose=False, **kw)
+    proto = guided(1)
+    tasks, call_ms = [], []
+    run = proto.optimizer.run_optimizer
+
+    def timed_run(x, step):
+        t0 = time.perf_counter()
+        req = run(x, step)
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+        tasks.append(req["task"])
+        return req
+    proto.optimizer.run_optimizer = timed_run
+    t0 = time.perf_counter()
+    _, out["launches"]["guided_protocol_sqn"] = driven(
+        "(b) guided SQN, protocol engine, 1 epoch",
+        lambda: proto.fit(X, Y, engine="protocol"), chosen, NUM_BATCHES,
+        no_sync=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    check(tasks == expected_sqn_tasks(NUM_BATCHES)[1:],
+          f"(b) the request order: {len(tasks)} requests, "
+          f"{tasks.count('calc_hess_vec')} calc_hess_vec")
+    loss = float(obj(proto.x, X, Y))
+    out["losses"]["guided_protocol_sqn_1_epoch"] = loss
+    loss_near("(b) guided protocol SQN, 1 epoch", loss,
+              JAX_FE_LOSS["guided_protocol_sqn_1_epoch"], LOSS_RTOL)
+    one = guided(1)
+    one.fit(X, Y, engine="fused")
+    err = float(np.abs(proto.x - one.x).max())
+    check(one._fused_dispatch_mode == "loop"
+          and np.allclose(proto.x, one.x, rtol=PARITY_RTOL, atol=PARITY_ATOL),
+          f"(b) x against the fused engine on the same batches: max_abs_err "
+          f"{err:.3e} within rtol={PARITY_RTOL} atol={PARITY_ATOL}")
+    grad_calls = [ms for ms, t in zip(call_ms[1:], tasks) if t == "calc_grad"]
+    out["protocol_call_ms"] = statistics.median(call_ms)
+    out["protocol_request_ms"] = 1e3 * fit_s / len(tasks)
+    print(f"  (b) host wall: run_optimizer median {out['protocol_call_ms']:.4f}"
+          f" ms a call ({statistics.median(grad_calls):.4f} ms answering "
+          f"a calc_grad); {out['protocol_request_ms']:.4f} ms a request with "
+          f"its callable, {NUM_BATCHES / fit_s:.1f} iters/s", flush=True)
+
+    # (c) the guided SQN on the fused engine: default shuffle, "auto" decay
+    fused, out["launches"]["guided_fused_sqn"] = driven(
+        "(c) guided SQN, fused engine, 2 epochs",
+        lambda: guided(2).fit(X, Y, engine="fused"), chosen, steps)
+    check(fused._fused_dispatch_mode == "scheduled" and fused.niter == steps
+          and fused.req["task"] == "calc_grad",
+          f"(c) one scheduled dispatch ({fused._fused_dispatch_mode}), niter "
+          f"{fused.niter}, the protocol resumes at calc_grad")
+    loss = float(obj(fused.x, X, Y))
+    out["losses"]["guided_fused_sqn_2_epochs"] = loss
+    loss_near("(c) guided fused SQN, 2 epochs", loss,
+              JAX_FE_LOSS["guided_fused_sqn_2_epochs"], LOSS_RTOL)
+
+    # (d) adaQN through the model, the projection kernel; float64 plain
+    ada_kw = dict(optimizer="adaQN", fisher_size=100, rmsprop_weight=0.9,
+                  step_size=ADAQN_STEP, bfgs_upd_freq=UPD_FREQ, **FE_MODEL_KW)
+    ada, out["launches"]["logistic_fused_adaqn"] = driven(
+        "(d) StochasticLogisticRegression adaQN fused, use_pallas=True",
+        lambda: StochasticLogisticRegression(use_pallas=True, **ada_kw).fit(
+            X, Y), "project_adaqn", steps)
+    loss = model_loss(ada.x_, Xd, Yd)
+    out["losses"]["logistic_adaqn"] = loss
+    rel32 = abs(loss - JAX_FE_ADAQN_LOSS) / JAX_FE_ADAQN_LOSS
+    loss_near("(d) logistic adaQN float32 (kernel route) against the JAX "
+              "float64 run", loss, JAX_FE_ADAQN_F64_LOSS, FINAL_RTOL)
+    print(f"  (d) float32 against the JAX float32 run (coupling gram): "
+          f"{rel32:.3e}", flush=True)
+    ada64, _ = driven(
+        "(d) adaQN float64 (no kernel takes float64)",
+        lambda: StochasticLogisticRegression(
+            use_pallas=True, dtype=torch.float64, **ada_kw).fit(X, Y),
+        None, 0)
+    loss = model_loss(ada64.x_, Xd.double(), Yd.double())
+    out["losses"]["logistic_adaqn_f64"] = loss
+    loss_near("(d) logistic adaQN float64", loss, JAX_FE_ADAQN_F64_LOSS,
+              F64_RTOL)
+
+    # (e) oLBFGS through the model (no kernel serves oLBFGS)
+    olb, _ = driven("(e) StochasticLogisticRegression oLBFGS fused",
+                    lambda: StochasticLogisticRegression(
+                        optimizer="oLBFGS", **FE_MODEL_KW).fit(X, Y),
+                    None, 0)
+    loss = model_loss(olb.x_, Xd, Yd)
+    out["losses"]["logistic_olbfgs"] = loss
+    loss_near("(e) logistic oLBFGS", loss, JAX_FE_LOSS["logistic_olbfgs"],
+              LOSS_RTOL)
+
+    # (f) the same SQN fit on a CSR matrix, and on its densified copy
+    import scipy.sparse as sp
+    rng = np.random.default_rng(1)
+    Xs = sp.random(X.shape[0], N_FEATURES, density=FE_DENSITY, format="csr",
+                   random_state=rng, dtype=np.float32,
+                   data_rvs=lambda k: rng.standard_normal(k).astype(
+                       np.float32))
+    sq_kw = dict(optimizer="SQN", bfgs_upd_freq=UPD_FREQ, **FE_MODEL_KW)
+    sparse, out["launches"]["logistic_sparse_sqn"] = driven(
+        f"(f) StochasticLogisticRegression SQN fused on a CSR matrix "
+        f"({Xs.nnz} entries, at most {np.diff(Xs.indptr).max()} a row)",
+        lambda: StochasticLogisticRegression(**sq_kw).fit(Xs, Y), chosen,
+        steps)
+    dense = StochasticLogisticRegression(**sq_kw).fit(Xs.toarray(), Y)
+    Xsd = torch.from_numpy(Xs.toarray()).to(dev)
+    ls, ld = model_loss(sparse.x_, Xsd, Yd), model_loss(dense.x_, Xsd, Yd)
+    rel = abs(ls - ld) / ld
+    err = float(np.abs(sparse.x_ - dense.x_).max())
+    scale = float(np.abs(dense.x_).max())
+    check(rel <= FE_SPARSE_RTOL and err <= FE_SPARSE_RTOL * scale,
+          f"(f) CSR against its densified copy: loss {ls:.7g} vs {ld:.7g} "
+          f"(rel {rel:.3e}), max |dx| {err:.3e} (max |x| {scale:.3g}); "
+          f"within {FE_SPARSE_RTOL} relative")
+
+    # (g) minimize with a flat numpy x0 at full width; the MLP
+    def loss_fn(x, b):
+        return losses.multinomial_logistic_loss(x, b[0], b[1], None, REG)
+    res, out["launches"]["minimize_sqn"] = driven(
+        "(g) minimize(SQN) from a numpy x0",
+        lambda: minimize(loss_fn, x0, (X, Y), optimizer="SQN",
+                         step_size=STEP, batch_size=BATCH_SIZE, nepochs=2,
+                         mem_size=MEM_SIZE, bfgs_upd_freq=UPD_FREQ),
+        chosen, steps)
+    l0 = float(loss_fn(torch.from_numpy(x0).to(dev), (Xd, Yd)))
+    l1 = float(loss_fn(res.x, (Xd, Yd)))
+    check(res.x.device.type == "cuda" and np.isfinite(l1) and l1 < l0,
+          f"(g) minimize on the card: loss {l0:.1f} -> {l1:.1f}")
+    out["losses"]["minimize_sqn"] = l1
+    mlp = MLPClassifier(hidden=(64,), nepochs=2, random_state=1,
+                        step_size=FE_MLP_STEP)
+    sizes = [N_FEATURES, 64, N_CLASSES]
+    p0 = init_mlp_params(torch.Generator(device=dev).manual_seed(1), sizes)
+    m0 = float(mlp_loss(p0, (Xd, Yd), mlp.reg_param))
+    mlp.fit(X, labels)
+    m1 = float(mlp_loss(mlp.params_, (Xd, Yd), mlp.reg_param))
+    check(np.isfinite(m1) and m1 < m0,
+          f"(g) MLPClassifier(hidden=(64,)) adaQN, 2 epochs: loss {m0:.4f} "
+          f"-> {m1:.4f}, accuracy {mlp.score(X, labels):.3f}")
+
+    # (h) OLBFGS as a torch.optim.Optimizer, 20 steps
+    w = torch.nn.Parameter(torch.from_numpy(x0).to(dev))
+    opt = OLBFGS([w], lr=STEP, mem_size=MEM_SIZE)
+    h0 = float(loss_fn(w.detach(), (Xd, Yd)))
+    for k in range(20):
+        opt.zero_grad()
+        rows = slice(k * BATCH_SIZE, (k + 1) * BATCH_SIZE)
+        loss_fn(w, (Xd[rows], Yd[rows])).backward()
+        opt.step()
+    h1 = float(loss_fn(w.detach(), (Xd, Yd)))
+    check(np.isfinite(h1) and h1 < h0 and int(opt.state[w]["mem"].count) > 0,
+          f"(h) OLBFGS, 20 steps: loss {h0:.1f} -> {h1:.1f}, "
+          f"{int(opt.state[w]['mem'].count)} live pairs")
+
+    # (i) save_state mid-protocol, load_state into a fresh SQN_free
+    import tempfile
+    Xb, Yb = Xd.reshape(NUM_BATCHES, BATCH_SIZE, -1), Yd.reshape(
+        NUM_BATCHES, BATCH_SIZE, -1)
+    free = SQN_free(mem_size=MEM_SIZE, bfgs_upd_freq=UPD_FREQ, use_float=True)
+    loop = FreeLoop(free, Xb, Yb, x0, STEP)
+    while not (loop.req["task"] == "calc_hess_vec"
+               and free.niter >= 2 * UPD_FREQ):
+        loop.answer()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sqn.npz")
+        save_state(path, free.state)
+        resume, x_saved = (loop.req, loop.b), loop.x.copy()
+        after = []
+        for _ in range(10):
+            loop.answer()
+            after.append((loop.req["task"], loop.x.copy()))
+        fresh = SQN_free(mem_size=MEM_SIZE, bfgs_upd_freq=UPD_FREQ,
+                         use_float=True)
+        template = FusedTrainer("SQN", SQNConfig.create(
+            mem_size=MEM_SIZE, bfgs_upd_freq=UPD_FREQ), grad_fn).init(
+            torch.zeros(N_FLAGSHIP, device=dev))
+        fresh.adopt_state(load_state(path, template))
+    loop2 = FreeLoop(fresh, Xb, Yb, x_saved, STEP, resume=resume)
+    same = fresh.niter == 2 * UPD_FREQ
+    for task, x in after:
+        loop2.answer()
+        same &= loop2.req["task"] == task and np.array_equal(loop2.x, x)
+    check(same and torch.equal(fresh.state.x, free.state.x)
+          and fresh.state.x.device.type == "cuda",
+          f"(i) save_state at iteration {2 * UPD_FREQ} (calc_hess_vec "
+          "pending), load_state into a fresh SQN_free on the card: the next "
+          "10 requests give the uninterrupted run's tasks and bits")
+    return out, clf
+
+
+@contextlib.contextmanager
+def epoch_walls():
+    """Host wall of every epoch a fused driver runs inside, synchronized
+    before and after (one sync per epoch of 120 steps)."""
+    orig = FusedTrainer._epoch_at
+    walls = []
+
+    def epoch_at(self, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(self, *args, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return out
+    FusedTrainer._epoch_at = epoch_at
+    try:
+        yield walls
+    finally:
+        FusedTrainer._epoch_at = orig
+
+
+def front_end_times(dev):
+    """(j) The logistic model's fused SQN fit against bare FusedTrainer
+    runs of the same 240 steps, in turns, each from a fresh state: phase
+    4's (jvp Hessian-vector products, summed loss) and one with the
+    model's own functions on data already on the card.  Two rates each:
+    the epochs alone (their walls, synchronized at each epoch's ends: the
+    per-step cost) and the whole call (host clock around work that ends
+    in a synchronize; the model's fit also copies X, 44 MB, to the card
+    and draws w0 on the host)."""
+    X, Y, _, _ = front_end_data()
+    Xd, Yd = torch.from_numpy(X).to(dev), torch.from_numpy(Y).to(dev)
+    np.random.seed(1)
+    w0 = torch.from_numpy(np.random.normal(size=N_FLAGSHIP)).to(
+        dev, torch.float32)
+    cfg = SQNConfig.create(mem_size=MEM_SIZE, bfgs_upd_freq=UPD_FREQ)
+    wts = torch.full((X.shape[0],), 1.0 / X.shape[0], device=dev)
+    model = FusedTrainer(
+        "SQN", cfg,
+        lambda x, b: losses.multinomial_logistic_grad(x, b[0], b[1], b[2],
+                                                      1e-3),
+        hess_vec_fn=lambda x, v, b: losses.multinomial_logistic_hessvec(
+            x, v, b[0], b[1], b[2], 1e-3))
+    phase4 = FusedTrainer("SQN", cfg, grad_fn)
+    batched = (Xd.reshape(NUM_BATCHES, BATCH_SIZE, -1),
+               Yd.reshape(NUM_BATCHES, BATCH_SIZE, -1))
+    runs = {
+        "logistic_fit": lambda: StochasticLogisticRegression(
+            optimizer="SQN", bfgs_upd_freq=UPD_FREQ, **FE_MODEL_KW).fit(X, Y),
+        "bare_model_functions": lambda: model.epochs(
+            model.init(w0), batched + (wts.reshape(NUM_BATCHES, -1),),
+            FE_MODEL_STEP, nepochs=2, aligned=True),
+        "bare_phase4": lambda: phase4.epochs(
+            phase4.init(w0), batched, STEP, nepochs=2, aligned=True),
+    }
+    steps = 2 * NUM_BATCHES
+    rates = {k: {"epochs": [], "call": []} for k in runs}
+    for name in list(runs) + list(runs)[::-1] + list(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with epoch_walls() as walls:
+            runs[name]()
+            torch.cuda.synchronize()
+        rates[name]["call"].append(steps / (time.perf_counter() - t0))
+        rates[name]["epochs"].append(steps / sum(walls))
+    med = {k: {w: statistics.median(v[w]) for w in v}
+           for k, v in rates.items()}
+    for name, r in rates.items():
+        print(f"  (j) {name} (2 epochs from a fresh state, in turns): epochs "
+              f"{', '.join(f'{v:.1f}' for v in r['epochs'])} iters/s (median"
+              f" {med[name]['epochs']:.1f}); whole call "
+              f"{', '.join(f'{v:.1f}' for v in r['call'])} (median "
+              f"{med[name]['call']:.1f})", flush=True)
+    return med
+
+
 def check_no_spills(report):
     """ptxas's report of the build (``-Xptxas -v``): every kernel of the
     four sources is in it, and none spills a byte."""
@@ -2617,6 +3085,8 @@ def main():
     generic = generic_phase(dev)
     bf16 = bf16_phase(dev)
     drivers = drivers_phase(dev)
+    front, _ = front_end_phase(dev)
+    front_ips = front_end_times(dev)
 
     # launches: the counts of the paths driven above (fused SQN, fused adaQN,
     # free-mode SQN at m = 10 and m = 20, free-mode adaQN, fused SQN
@@ -2651,6 +3121,12 @@ def main():
                           "fused_adaqn_fisher_bf16": bf16["adaqn_launches"]},
     }
     by_path[chosen].update(sqn_f32_paths)
+    fe = front["launches"]
+    by_path[chosen].update({k: fe[k] for k in (
+        "logistic_fused_sqn", "guided_protocol_sqn", "guided_fused_sqn",
+        "logistic_sparse_sqn", "minimize_sqn")})
+    by_path["project_adaqn"]["logistic_fused_adaqn"] = \
+        fe["logistic_fused_adaqn"]
     for name, launches in (("fused_sqn_bf16", bf16["launches"]["block"]),
                            ("fused_sqn_bf16_interleaved",
                             bf16["launches"]["interleaved"]),
@@ -2672,6 +3148,19 @@ def main():
           f"{olbfgs['iters_per_s']['block']:.1f}, interleaved "
           f"{olbfgs['iters_per_s']['interleaved']:.1f}; oLBFGS_free "
           f"{olbfgs['free_iters_per_s']:.1f}", flush=True)
+    fit, bare = front_ips["logistic_fit"], front_ips[
+        "bare_model_functions"]
+    print(f"  front ends: logistic fused SQN {fit['epochs']:.1f} iters/s in "
+          f"its epochs ({fit['call']:.1f} the whole fit), bare FusedTrainer "
+          f"{bare['epochs']:.1f} (the model's functions) and "
+          f"{front_ips['bare_phase4']['epochs']:.1f} (phase 4's), in "
+          f"turns; one protocol request {front['protocol_request_ms']:.4f} "
+          f"ms of host wall, run_optimizer {front['protocol_call_ms']:.4f} "
+          "ms", flush=True)
+    front_end = {"iters_per_s": front_ips,
+                 "guided_protocol_request_ms": front["protocol_request_ms"],
+                 "guided_protocol_run_optimizer_ms":
+                 front["protocol_call_ms"], "losses": front["losses"]}
     f32 = timing["float32"]
     src = "stochqn_tpu_torch/csrc/"
     tpu = "stochqn_tpu/ops/pallas/two_loop_kernel.py:"
@@ -2681,7 +3170,8 @@ def main():
                 "replaces": f"{tpu}{line}",
                 "launches": sum(by_path[name].values()),
                 "launches_by_path": by_path[name],
-                "max_abs_err": max_abs_err, **times, **bound_keys, **more}
+                "max_abs_err": max_abs_err, **times, **bound_keys, **more,
+                **({"front_end": front_end} if name == chosen else {})}
     print(json.dumps({"kernels": [
         entry("direction_streamed", 309, max_abs, f32,
               direction_bound(MEM_SIZE, N_FLAGSHIP), bf16=timing["bfloat16"],

@@ -27,12 +27,20 @@ scheduled, shuffled and streamed epoch drivers (``epochs_scheduled``,
 ``run_epochs``, ``shuffle_batched``, ``utils.data.stream_rounds``), paired
 oLBFGS gradients, bfloat16 pair and Fisher storage in every optimizer
 (the bfloat16 pairs on ``direction_streamed``), and ``utils`` (schedules,
-streaming, metrics).  ROADMAP.md lists what comes next.
+streaming, metrics); and the front ends: the guided ``oLBFGS`` / ``SQN`` /
+``adaQN`` (``fit`` on the protocol or the fused engine, ``partial_fit``),
+``models.logistic.StochasticLogisticRegression`` (dense and CSR, through
+``models.sparse``), ``minimize``, the ``torch.optim`` adapter
+``optim_adapter.OLBFGS`` with ``PytreeTrainer``, ``models.mlp`` and the
+``.npz`` checkpoints of ``utils.checkpoint``.  ROADMAP.md lists what comes
+next.
 """
+from stochqn_tpu_torch.api import MinimizeResult, minimize
 from stochqn_tpu_torch.convert import (
     adaqn_state_from_numpy, adaqn_state_to_numpy,
     bfgs_memory_interleaved_from_numpy, bfgs_memory_interleaved_to_numpy,
     fisher_memory_from_numpy, fisher_memory_to_numpy,
+    mlp_params_from_numpy, mlp_params_to_numpy,
     olbfgs_state_from_numpy, olbfgs_state_to_numpy, sqn_state_from_numpy,
     sqn_state_to_numpy)
 from stochqn_tpu_torch.core.config import AdaQNConfig, OLBFGSConfig, SQNConfig
@@ -44,7 +52,10 @@ from stochqn_tpu_torch.core.state import (AdaQNState, BFGSMemory,
 from stochqn_tpu_torch.free import SQN_free, adaQN_free, oLBFGS_free
 from stochqn_tpu_torch.fused import (FusedTrainer, batchify,
                                      shuffle_batched)
+from stochqn_tpu_torch.guided import SQN, adaQN, oLBFGS
 from stochqn_tpu_torch.models import losses
+from stochqn_tpu_torch.models.logistic import StochasticLogisticRegression
+from stochqn_tpu_torch.optim_adapter import OLBFGS, PytreeTrainer, olbfgs
 from stochqn_tpu_torch.ops.kernels.two_loop_kernel import (
     direction, direction_ref, direction_streamed, direction_streamed_ref,
     project, project_adaqn, project_adaqn_ref, project_ref)
@@ -52,6 +63,7 @@ from stochqn_tpu_torch.ops.pairs import (commit_pair, conditional_flush,
                                          direction_is_bad, fisher_y)
 from stochqn_tpu_torch.ops.two_loop import (two_loop, two_loop_cached,
                                             two_loop_sequential)
+from stochqn_tpu_torch.utils.checkpoint import load_state, save_state
 
 __all__ = [
     "Task", "Info",
@@ -60,6 +72,9 @@ __all__ = [
     "FisherMemory", "AdaQNState",
     "AdvanceResult", "oLBFGS_free", "SQN_free", "adaQN_free",
     "FusedTrainer", "batchify", "shuffle_batched",
+    "oLBFGS", "SQN", "adaQN", "StochasticLogisticRegression",
+    "minimize", "MinimizeResult", "OLBFGS", "olbfgs", "PytreeTrainer",
+    "save_state", "load_state",
     "losses",
     "commit_pair", "conditional_flush", "direction_is_bad", "fisher_y",
     "two_loop", "two_loop_cached", "two_loop_sequential",
@@ -71,4 +86,5 @@ __all__ = [
     "bfgs_memory_interleaved_from_numpy", "bfgs_memory_interleaved_to_numpy",
     "adaqn_state_from_numpy", "adaqn_state_to_numpy",
     "fisher_memory_from_numpy", "fisher_memory_to_numpy",
+    "mlp_params_from_numpy", "mlp_params_to_numpy",
 ]

@@ -6,7 +6,8 @@ field (``mem`` as a nested dict) and builds this package's
 :class:`~stochqn_tpu_torch.core.state.SQNState`; ``sqn_state_to_numpy``
 goes back.  ``olbfgs_state_{from,to}_numpy`` do the same for
 ``OLBFGSState`` and ``adaqn_state_{from,to}_numpy`` for ``AdaQNState``
-(``mem`` and ``fisher`` nested).  A ``mem`` dict with an ``sy`` entry is
+(``mem`` and ``fisher`` nested); ``mlp_params_{from,to}_numpy`` carry the
+MLP's list of ``{"w", "b"}`` layers (``models/mlp.py``).  A ``mem`` dict with an ``sy`` entry is
 an interleaved memory (``bfgs_memory_interleaved_{from,to}_numpy``); it
 and the Fisher ring carry their static mode ``shift`` as a bool.  Both
 sides then compute the same thing from the same state.
@@ -157,3 +158,15 @@ def adaqn_state_to_numpy(state: AdaQNState) -> dict:
     out["mem"] = bfgs_memory_to_numpy(state.mem)
     out["fisher"] = fisher_memory_to_numpy(state.fisher)
     return out
+
+
+def mlp_params_from_numpy(params, device=None) -> list:
+    """The JAX package's MLP parameters (``models.mlp.init_mlp_params``'
+    list of ``{"w", "b"}`` dicts, as numpy arrays) as this package's, on
+    ``device``."""
+    return [{k: _tensor(k, v, device) for k, v in layer.items()}
+            for layer in params]
+
+
+def mlp_params_to_numpy(params) -> list:
+    return [{k: _array(k, v) for k, v in layer.items()} for layer in params]

@@ -109,8 +109,26 @@ class _StochQNFree:
                             device=self.device).reshape(-1)
         self._n = x.shape[0]
         self.state = self._init_fn(x, self._cfg)
+        self._zero_inputs()
+
+    def _zero_inputs(self) -> None:
+        """Fresh evaluation buffers for an ``n``-sized state."""
         self._gradient = torch.zeros(self._n, dtype=self.dtype,
                                      device=self.device)
+
+    def adopt_state(self, state) -> None:
+        """Continue the protocol from ``state``: a fused fit's, or one
+        loaded with :func:`stochqn_tpu_torch.utils.checkpoint.load_state`.
+        The next :meth:`run_optimizer` resumes at its ``section``; ``niter``
+        is read once, here.  The state must have this optimizer's kind,
+        dtype and device."""
+        if state.x.dtype != self.dtype:
+            raise ValueError(f"the state is {state.x.dtype}, this optimizer "
+                             f"{self.dtype}")
+        self.state = state
+        self._n = state.x.shape[0]
+        self._niter = int(state.niter)
+        self._zero_inputs()
 
     def _extra_inputs(self) -> Tuple:
         return ()
@@ -247,8 +265,8 @@ class SQN_free(_StochQNFree):
     def use_grad_diff(self) -> bool:
         return self._cfg.use_grad_diff
 
-    def _initialize(self, x) -> None:
-        super()._initialize(x)
+    def _zero_inputs(self) -> None:
+        super()._zero_inputs()
         self._hess_vec = torch.zeros(self._n, dtype=self.dtype,
                                      device=self.device)
 

@@ -89,6 +89,10 @@ def binary_logistic_hessvec(w, v, X, y, sample_weight=None, reg_param=0.0):
     return h_coef
 
 
+def binary_logistic_predict_proba(w, X):
+    return torch.sigmoid(_bin_margins(w, X))
+
+
 # --------------------------------------------------------------------------
 # Multinomial logistic regression
 # --------------------------------------------------------------------------
@@ -147,3 +151,15 @@ def multinomial_logistic_hessvec(w, v, X, Y, sample_weight=None,
         h_b = torch.sum(r, dim=0)
         return torch.cat([h_coef, h_b[:, None]], dim=1).reshape(-1)
     return h_coef.reshape(-1)
+
+
+def multinomial_logistic_predict_proba(w, X, n_classes):
+    """Per-class sigmoid scores, matching the reference's prediction
+    function (``stochqn/_logistic.py:14-20`` applies an elementwise sigmoid
+    to the margins rather than a softmax)."""
+    return torch.sigmoid(_mult_logits(w, X, n_classes))
+
+
+def multinomial_logistic_predict_softmax(w, X, n_classes):
+    """Softmax class probabilities (an extra of the JAX package)."""
+    return torch.softmax(_mult_logits(w, X, n_classes), dim=-1)
