@@ -143,6 +143,27 @@ Phases (each failure raises and exits non-zero; nothing is caught):
     the next 10 requests bit for bit; (j) the model's fused fit in turns
     with bare ``FusedTrainer`` runs of the same steps, and the host wall of
     a protocol request.
+19. The sharded paths (``stochqn_tpu_torch.parallel``) at the same shape:
+    (a) in this process, an NCCL group of one rank and a (1, 1) mesh:
+    fused SQN for 2 epochs gives phase 4's bits, one launch per step of the
+    gate's kernel, and in the recorder one all-reduce of n * 4 bytes per
+    base step and per boundary.  Then clusters of this script, one process
+    per rank (``--rank``), all ranks on cuda:0 over gloo (NCCL refuses two
+    ranks on one GPU; the tensors stay on the card): (b) a (2, 1) mesh,
+    data-parallel fused SQN: x bit-identical on both ranks, each launching
+    the gate's kernel per step, (a)'s budget with group size 2, the JAX
+    loss within 0.1%; (c) the same mesh, adaQN with ``use_pallas=True``
+    (``project_adaqn`` per step on each rank): phase 7's boundary codes and
+    guard f at the first boundaries; (d) a (1, 3) mesh (n = 3 x 97,361),
+    parameter-sharded fused SQN and oLBFGS: the split route every SQN step,
+    no kernel launched, the CPU tests' collective budget, the JAX losses
+    within 0.1%; (e) the (2, 1) mesh, ``StochasticLogisticRegression``
+    with ``reg_param=0.1`` within 1e-5 of its unsharded fit (the penalty
+    counted once); (f) ``save_sharded`` after (d)'s first epoch,
+    ``load_sharded`` into 3 fresh ranks and one more epoch: (d)'s bits;
+    (g) iters/s of (b) and (d) and of one rank in this process before and
+    after the clusters, and the host share of an epoch spent in
+    collectives, each labelled as gloo on one card.
 
 The last two lines are the kernels' JSON record and the contract line
 ``{"ok": true, "device": {...}}``; the card's ``nvidia-smi`` line is
@@ -835,6 +856,7 @@ def main_path_phase(dev):
           f"{JAX_LOSS_2_EPOCHS} (CPU): rel diff {rel:.3e} <= {LOSS_RTOL}")
     check(set(infos_l) == {200}, f"all {steps} info codes are 200")
     check(count == MEM_SIZE, f"ring count == {MEM_SIZE}")
+    x_2_epochs = state.x.clone()       # phase 19 (a) runs this on a mesh
 
     # Steady epochs of the gate's route and of the streamed kernel forced
     # (the gate's cap check answered "no"), in turns, so that both see the
@@ -882,7 +904,7 @@ def main_path_phase(dev):
         print(f"  layer {name}: device {device_ms(fn, iters):.4f} ms, host "
               f"wall {host_ms(fn, iters):.4f} ms", flush=True)
     print(f"  step at the median rate: {1e3 / ips:.4f} ms", flush=True)
-    return {chosen: launches}, ips, streamed_ips
+    return {chosen: launches}, ips, streamed_ips, x_2_epochs
 
 
 # ---------------------------------------------------------------------------
@@ -3005,6 +3027,471 @@ def front_end_times(dev):
     return med
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the sharded paths.  NCCL refuses two ranks on one GPU, so the
+# multi-rank runs use gloo on CUDA tensors, every rank on cuda:0: the
+# tensors stay on the card and every sum goes through the host.  Each
+# cluster is this script started once per rank (--rank ...), writing its
+# results into a temporary directory; a rank that fails fails the phase.
+SHARD_DP = 2       # data ranks of (b), (c) and (e)
+SHARD_PARAM = 3    # param ranks of (d) and (f): n = 292,083 = 3 x 97,361
+# (e): the model's sharded fit against its unsharded fit on the card, in
+# float32, in the model's objective (mean log-loss + 0.05 ||coef||^2).
+DP_LOGISTIC_RTOL = 1e-5
+DP_MODEL_KW = dict(optimizer="SQN", bfgs_upd_freq=UPD_FREQ, reg_param=0.1,
+                   **FE_MODEL_KW)
+GLOO_LABEL = "gloo on one card, not a multi-GPU figure"
+
+
+@contextlib.contextmanager
+def collective_wall():
+    """Host seconds spent inside ``torch.distributed.all_reduce`` (every
+    sum of the port goes through it) while the block runs."""
+    orig = torch.distributed.all_reduce
+    spent = [0.0]
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = orig(*args, **kw)
+        spent[0] += time.perf_counter() - t0
+        return out
+    torch.distributed.all_reduce = timed
+    try:
+        yield spent
+    finally:
+        torch.distributed.all_reduce = orig
+
+
+def log_table(log):
+    """A collective log as arrays (labels, payload bytes, group sizes)."""
+    return dict(labels=np.array([op.label for op in log]),
+                nbytes=np.array([op.payload_bytes for op in log], np.int64),
+                groups=np.array([op.group_size for op in log], np.int64))
+
+
+def timed_epochs(trainer, state, data, turns=3):
+    """Single epochs, synchronized: their iters/s and the share of their
+    host wall spent in collectives."""
+    rates, shares = [], []
+    for _ in range(turns):
+        torch.cuda.synchronize()
+        with collective_wall() as spent:
+            t0 = time.perf_counter()
+            state, _ = trainer.epochs(state, data, STEP, nepochs=1,
+                                      aligned=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rates.append(NUM_BATCHES / wall)
+        shares.append(spent[0] / wall)
+    return state, dict(iters_per_s=np.array(rates),
+                       collective_share=np.array(shares))
+
+
+def counted(run):
+    """``run()`` with every count at 0 (the split route's too) and the
+    collectives recorded; returns its value, the counts and the log."""
+    from stochqn_tpu_torch.parallel import record_collectives
+    torch.cuda.synchronize()
+    reset_launches()
+    two_loop_mod.SPLIT_ROUTE = 0
+    with record_collectives() as log:
+        out = run()
+    torch.cuda.synchronize()
+    counts = dict(read_launches(), split_route=two_loop_mod.SPLIT_ROUTE)
+    return out, {k: np.int64(v) for k, v in counts.items()}, log_table(log)
+
+
+def sqn_cfg():
+    return SQNConfig.create(mem_size=MEM_SIZE, bfgs_upd_freq=UPD_FREQ)
+
+
+def rank_jobs(cluster, rank, ckpt):
+    """The jobs of one rank of ``cluster``: ``{job: results}``."""
+    from stochqn_tpu_torch.parallel import (gather_state, make_mesh,
+                                            shard_batches)
+    from stochqn_tpu_torch.utils.checkpoint import (load_sharded,
+                                                    save_sharded)
+    dev = torch.device("cuda", 0)
+    X, Y, x0 = bench_data(dev)
+    out = {}
+    if cluster == "dp":
+        mesh = make_mesh(SHARD_DP, 1)
+        data = shard_batches((X, Y), mesh)
+
+        # the penalty split over the data ranks: summed, it counts once
+        def g(x, b):
+            return losses.multinomial_logistic_grad(x, b[0], b[1], None,
+                                                    REG / SHARD_DP)
+
+        def f(x, b):
+            return losses.multinomial_logistic_loss(x, b[0], b[1], None,
+                                                    REG / SHARD_DP)
+        tr = FusedTrainer("SQN", sqn_cfg(), g, mesh=mesh)
+        (st, infos), counts, log = counted(lambda: tr.epochs(
+            tr.init(x0), data, STEP, nepochs=2, aligned=True))
+        out["b"] = dict(x=st.x.cpu().numpy(), infos=infos.cpu().numpy(),
+                        count=np.int64(int(st.mem.count)), **counts, **log)
+        _, times = timed_epochs(tr, st, data)
+        out["b"].update(times)
+
+        fvals = []
+
+        def recording_f(x, b):
+            v = f(x, b)
+            fvals.append(v)     # this rank's share of the guard's f
+            return v
+        tr = FusedTrainer("adaQN", AdaQNConfig.create(
+            **ADAQN_KW, use_pallas=True), g, obj_fn=recording_f, mesh=mesh)
+        (st, infos), counts, log = counted(lambda: tr.epochs(
+            tr.init(x0), data, ADAQN_STEP, nepochs=2, aligned=True))
+        out["c"] = dict(x=st.x.cpu().numpy(), infos=infos.cpu().numpy(),
+                        f_local=torch.stack(fvals).cpu().numpy(),
+                        count=np.int64(int(st.mem.count)),
+                        fisher_count=np.int64(int(st.fisher.count)),
+                        **counts, **log)
+
+        Xh, Yh, _, _ = front_end_data()
+        clf, counts, log = counted(lambda: StochasticLogisticRegression(
+            mesh=mesh, **DP_MODEL_KW).fit(Xh, Yh))
+        out["e"] = dict(x=clf.x_, **counts, **log)
+        if rank == 0:
+            out["e"]["x_plain"] = StochasticLogisticRegression(
+                **DP_MODEL_KW).fit(Xh, Yh).x_
+    elif cluster == "param":
+        mesh = make_mesh(1, SHARD_PARAM)
+        data = (X, Y)               # one data rank: every row
+
+        def two_epochs_with_checkpoint():
+            state, i1 = tr.epochs(tr.init(x0), data, STEP, nepochs=1,
+                                  aligned=True)
+            save_sharded(ckpt, state, mesh)          # (f): after epoch 1
+            state, i2 = tr.epochs(state, data, STEP, nepochs=1,
+                                  aligned=True)
+            return state, torch.cat([i1, i2])
+        tr = FusedTrainer("SQN", sqn_cfg(), grad_fn, mesh=mesh)
+        (st, infos), counts, log = counted(two_epochs_with_checkpoint)
+        full = gather_state(st, mesh)
+        out["d_sqn"] = dict(x=full.x.cpu().numpy(),
+                            infos=infos.cpu().numpy(),
+                            count=np.int64(int(st.mem.count)), **counts,
+                            **log)
+        _, times = timed_epochs(tr, st, data)
+        out["d_sqn"].update(times)
+
+        tr = FusedTrainer("oLBFGS", OLBFGSConfig.create(mem_size=MEM_SIZE),
+                          grad_fn, mesh=mesh)
+        (st, infos), counts, log = counted(lambda: tr.epochs(
+            tr.init(x0), data, STEP, nepochs=2, aligned=True))
+        out["d_olbfgs"] = dict(x=gather_state(st, mesh).x.cpu().numpy(),
+                               infos=infos.cpu().numpy(), **counts, **log)
+    else:                           # "resume": fresh ranks load (f)
+        mesh = make_mesh(1, SHARD_PARAM)
+        tr = FusedTrainer("SQN", sqn_cfg(), grad_fn, mesh=mesh)
+        st = load_sharded(ckpt, tr.init(torch.zeros_like(x0)), mesh)
+        niter = int(st.niter)
+        st, _ = tr.epochs(st, (X, Y), STEP, nepochs=1, aligned=True)
+        out["f"] = dict(x=gather_state(st, mesh).x.cpu().numpy(),
+                        niter_loaded=np.int64(niter))
+    return out
+
+
+def rank_main(argv):
+    """One rank of a phase 19 cluster (``--rank r --world w --cluster c
+    --dir d``): joins the gloo group through the rendezvous file in ``d``
+    and writes ``d/<job>.r<rank>.npz``."""
+    args = dict(zip(argv[0::2], argv[1::2]))
+    rank, world = int(args["--rank"]), int(args["--world"])
+    out_dir = args["--dir"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.cuda.set_device(0)
+    # gloo, not NCCL: NCCL refuses two ranks on one GPU
+    torch.distributed.init_process_group(
+        "gloo", init_method="file://" + os.path.join(out_dir, "rendezvous"),
+        world_size=world, rank=rank)
+    try:
+        t0 = time.perf_counter()
+        results = rank_jobs(args["--cluster"], rank,
+                            os.path.join(out_dir, "checkpoint"))
+        for arrays in results.values():
+            arrays["job_seconds"] = np.float64(time.perf_counter() - t0)
+        for job, arrays in results.items():
+            np.savez(os.path.join(out_dir, f"{job}.r{rank}.npz"), **arrays)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_cluster(cluster, world, out_dir, timeout=300):
+    """Start ``world`` ranks of ``cluster``, wait for all; a rank that
+    fails fails the phase with its log.  Returns the wall seconds."""
+    t0 = time.perf_counter()
+    here = os.path.abspath(__file__)
+    procs = [subprocess.Popen(
+        [sys.executable, here, "--rank", str(r), "--world", str(world),
+         "--cluster", cluster, "--dir", out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=timeout)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            logs.append(p.communicate()[0] + "\n(killed at the time limit)")
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            print(log[-6000:], flush=True)
+            check(False, f"cluster {cluster}: rank {r} exited with "
+                  f"{p.returncode}")
+    return time.perf_counter() - t0
+
+
+def load_job(out_dir, job, world):
+    out = []
+    for r in range(world):
+        with np.load(os.path.join(out_dir, f"{job}.r{r}.npz")) as f:
+            out.append({k: f[k] for k in f.files})
+    return out
+
+
+def same_x_on_ranks(what, ranks):
+    same = all(np.array_equal(ranks[0]["x"], r["x"]) for r in ranks[1:])
+    check(same, f"{what}: x bit-identical on all {len(ranks)} ranks")
+    return torch.from_numpy(ranks[0]["x"])
+
+
+def labels_count(rank, label):
+    return int(np.sum(rank["labels"] == label))
+
+
+def one_rank_ips(trainer, state, data):
+    """The unsharded trainer's steady epochs in this process (the one-rank
+    run timed in turns with the clusters)."""
+    rates = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = trainer.epochs(state, data, STEP, nepochs=1, aligned=True)
+        torch.cuda.synchronize()
+        rates.append(NUM_BATCHES / (time.perf_counter() - t0))
+    return state, rates
+
+
+def sharded_phase(dev, x_phase4):
+    phase("19. sharded paths at BibTeX shape: a (1, 1) NCCL mesh in this "
+          "process; data-parallel (2, 1) SQN, adaQN and the logistic model, "
+          "parameter-sharded (1, 3) SQN and oLBFGS, a sharded checkpoint, "
+          f"over {GLOO_LABEL}")
+    import tempfile
+    from stochqn_tpu_torch.parallel import make_mesh, record_collectives
+    t_phase = time.perf_counter()
+    X, Y, x0 = bench_data(dev)
+    Xf, Yf = X.reshape(-1, N_FEATURES), Y.reshape(-1, N_CLASSES)
+
+    def full_loss(x):
+        return float(losses.multinomial_logistic_loss(
+            torch.as_tensor(x, device=dev), Xf, Yf, None, REG))
+    steps = 2 * NUM_BATCHES
+    chosen, _ = gate_choice(MEM_SIZE, N_FLAGSHIP, dev)
+    out = {"launches": {}}
+
+    # (a) NCCL, one rank, mesh (1, 1), in this process
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.distributed.init_process_group(
+            "nccl", init_method="file://" + os.path.join(tmp, "rdv"),
+            world_size=1, rank=0)
+        try:
+            mesh = make_mesh(1, 1)
+            tr = FusedTrainer("SQN", sqn_cfg(), grad_fn, mesh=mesh)
+            torch.cuda.synchronize()
+            reset_launches()
+            with record_collectives() as log:
+                st, infos = tr.epochs(tr.init(x0), (X, Y), STEP, nepochs=2,
+                                      aligned=True)
+            torch.cuda.synchronize()
+            counts = read_launches()
+        finally:
+            torch.distributed.destroy_process_group()
+    launches = counts.pop(chosen)
+    grads = [op for op in log if op.label == "grad"]
+    hvps = [op for op in log if op.label == "hvp"]
+    check(launches == steps and not any(counts.values()),
+          f"(a) mesh (1, 1) on NCCL: {chosen} launched {launches} times for "
+          f"{steps} steps, the other kernels {counts}")
+    check(len(grads) == steps and len(hvps) == steps // UPD_FREQ
+          and len(log) == len(grads) + len(hvps)
+          and all(op.payload_bytes == N_FLAGSHIP * 4 and op.group_size == 1
+                  and op.kind == "all-reduce" for op in log),
+          f"(a) the recorder: one all-reduce of n * 4 = {N_FLAGSHIP * 4} "
+          f"bytes per base step ({len(grads)}) and per boundary "
+          f"({len(hvps)}), group size 1, nothing else")
+    check(torch.equal(st.x, x_phase4),
+          "(a) x after 2 epochs: phase 4's bits (a sum over one rank "
+          "changes nothing)")
+    out["launches"]["mesh_1x1_fused_sqn"] = launches
+
+    trainer = FusedTrainer("SQN", sqn_cfg(), grad_fn)
+    one_state, one_rank = one_rank_ips(trainer, trainer.init(x0), (X, Y))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        walls = {}
+        for cluster, world in (("dp", SHARD_DP), ("param", SHARD_PARAM),
+                               ("resume", SHARD_PARAM)):
+            walls[cluster] = run_cluster(cluster, world, tmp)
+        b = load_job(tmp, "b", SHARD_DP)
+        c = load_job(tmp, "c", SHARD_DP)
+        e = load_job(tmp, "e", SHARD_DP)
+        d_sqn = load_job(tmp, "d_sqn", SHARD_PARAM)
+        d_olbfgs = load_job(tmp, "d_olbfgs", SHARD_PARAM)
+        f = load_job(tmp, "f", SHARD_PARAM)
+    _, turns = one_rank_ips(trainer, one_state, (X, Y))
+    one_rank += turns
+    print(f"  cluster walls (start-up included): "
+          f"{', '.join(f'{k} {v:.1f} s' for k, v in walls.items())}; "
+          f"the jobs of rank 0 in them: "
+          f"{float(b[0]['job_seconds']):.1f} s, "
+          f"{float(d_sqn[0]['job_seconds']):.1f} s, "
+          f"{float(f[0]['job_seconds']):.1f} s", flush=True)
+
+    # (b) data-parallel SQN, float32
+    xb = same_x_on_ranks("(b) mesh (2, 1) SQN", b)
+    for r, rk in enumerate(b):
+        check(int(rk[chosen]) == steps and int(rk["split_route"]) == 0
+              and sum(int(rk[k]) for k in ("direction", "direction_streamed",
+                                           "project", "project_adaqn")
+                      if k != chosen) == 0,
+              f"(b) rank {r}: {chosen} launched {int(rk[chosen])} times for "
+              f"{steps} steps, no other kernel, no split route")
+        check(labels_count(rk, "grad") == steps
+              and labels_count(rk, "hvp") == steps // UPD_FREQ
+              and len(rk["labels"]) == steps + steps // UPD_FREQ
+              and set(rk["nbytes"].tolist()) == {N_FLAGSHIP * 4}
+              and set(rk["groups"].tolist()) == {SHARD_DP},
+              f"(b) rank {r}: (a)'s budget, group size {SHARD_DP}: one "
+              "all-reduce of n * 4 bytes per base step and per boundary")
+    infos_b = b[0]["infos"].ravel().tolist()
+    loss_b = full_loss(xb)
+    check(set(infos_b) == {200} and int(b[0]["count"]) == MEM_SIZE,
+          f"(b) all {steps} info codes 200, {MEM_SIZE} live pairs")
+    loss_gate("(b) mesh (2, 1) SQN", loss_b, JAX_LOSS_2_EPOCHS, LOSS_RTOL)
+    out["launches"]["dp_fused_sqn_per_rank"] = int(b[0][chosen])
+
+    # (c) data-parallel adaQN on project_adaqn, float32
+    xc = same_x_on_ranks("(c) mesh (2, 1) adaQN", c)
+    for r, rk in enumerate(c):
+        check(int(rk["project_adaqn"]) == steps,
+              f"(c) rank {r}: project_adaqn launched "
+              f"{int(rk['project_adaqn'])} times for {steps} steps")
+    infos_c = c[0]["infos"].ravel().tolist()
+    binfos = infos_c[UPD_FREQ - 1::UPD_FREQ]
+    hist = {v: infos_c.count(v) for v in sorted(set(infos_c))}
+    check(hist == JAX_ADAQN_INFOS and binfos == JAX_ADAQN_BOUNDARY_INFOS,
+          f"(c) info histogram {hist}, boundary codes {binfos}: the JAX "
+          "package's")
+    f_c = (sum(rk["f_local"].astype(np.float64) for rk in c)).tolist()
+    early = max_rel(f_c[:EARLY_BOUNDARIES], JAX_F64_GUARD_F[:EARLY_BOUNDARIES])
+    check(early <= EARLY_RTOL,
+          f"(c) guard f (the ranks' shares summed) at boundaries "
+          f"1-{EARLY_BOUNDARIES} vs the JAX package's float64 run: max rel "
+          f"diff {early:.3e} <= {EARLY_RTOL}")
+    check(int(c[0]["count"]) == 1 and int(c[0]["fisher_count"]) == 20,
+          "(c) one live pair, 20 Fisher rows, as phase 7")
+    loss_c = float(losses.multinomial_logistic_loss(
+        xc.to(dev), Xf, Yf, None, REG))
+    print(f"  (c) loss after 2 epochs {loss_c:.4f} (phase 7's float32 "
+          f"kernel route: JAX {JAX_ADAQN_LOSS['kernel']})", flush=True)
+    out["launches"]["dp_fused_adaqn_per_rank"] = int(c[0]["project_adaqn"])
+
+    # (d) parameter-sharded SQN and oLBFGS: the split route, no kernel
+    xd = same_x_on_ranks("(d) mesh (1, 3) SQN (gathered)", d_sqn)
+    kernels = ("direction", "direction_streamed", "project", "project_adaqn")
+    for what, ranks, split in (("SQN", d_sqn, steps),
+                               ("oLBFGS", d_olbfgs, 0)):
+        for r, rk in enumerate(ranks):
+            check(not any(int(rk[k]) for k in kernels)
+                  and int(rk["split_route"]) == split,
+                  f"(d) {what} rank {r}: no kernel launched, the split "
+                  f"route taken {int(rk['split_route'])} times (want "
+                  f"{split})")
+    evals = {"SQN": (steps, steps // UPD_FREQ), "oLBFGS": (2 * steps, 0)}
+    for what, ranks in (("SQN", d_sqn), ("oLBFGS", d_olbfgs)):
+        rk = ranks[0]
+        grads, bounds = evals[what]
+        want = {"gather x": grads, "gather x, v": bounds, "grad": grads,
+                "hvp": bounds, "two_loop": steps, "guard": steps,
+                "commit": bounds if what == "SQN" else steps}
+        got = {k: labels_count(rk, k) for k in want}
+        small = rk["nbytes"][~np.isin(rk["labels"], [
+            "gather x", "gather x, v", "grad", "hvp"])]
+        check(got == want and len(rk["labels"]) == sum(want.values())
+              and int(small.max()) <= 1024,
+              f"(d) {what}: collectives {got} (the CPU tests' budget: per "
+              f"gradient one gather of x and one slice sum; per step one "
+              f"two-loop sum and one guard sum; per commit one sum), every "
+              f"small one <= 1024 bytes (largest {int(small.max())})")
+    loss_gate("(d) mesh (1, 3) SQN", full_loss(xd), JAX_LOSS_2_EPOCHS,
+              LOSS_RTOL)
+    xo = same_x_on_ranks("(d) mesh (1, 3) oLBFGS (gathered)", d_olbfgs)
+    loss_gate("(d) mesh (1, 3) oLBFGS", full_loss(xo),
+              JAX_OLBFGS_LOSS["block"], LOSS_RTOL)
+    check(set(d_sqn[0]["infos"].ravel().tolist()) == {200}
+          and set(d_olbfgs[0]["infos"].ravel().tolist()) == {200},
+          "(d) every info code 200")
+
+    # (e) the logistic model, data-parallel, reg_param 0.1
+    xe = same_x_on_ranks("(e) mesh (2, 1) StochasticLogisticRegression", e)
+    Xh, Yh, _, _ = front_end_data()
+    Xd, Yd = torch.from_numpy(Xh).to(dev), torch.from_numpy(Yh).to(dev)
+
+    def model_loss_01(x):
+        x = torch.as_tensor(x, device=dev, dtype=torch.float32)
+        w = torch.full((Xd.shape[0],), 1.0 / Xd.shape[0], device=dev)
+        return float(losses.multinomial_logistic_loss(x, Xd, Yd, w, 0.1))
+    l_sh, l_plain = model_loss_01(xe), model_loss_01(e[0]["x_plain"])
+    rel = abs(l_sh - l_plain) / l_plain
+    check(rel <= DP_LOGISTIC_RTOL,
+          f"(e) the model's sharded fit {l_sh:.7g} vs its unsharded fit "
+          f"{l_plain:.7g} on the card: rel diff {rel:.3e} <= "
+          f"{DP_LOGISTIC_RTOL} (the penalty counted once)")
+    for r, rk in enumerate(e):
+        check(int(rk[chosen]) == steps,
+              f"(e) rank {r}: {chosen} launched {int(rk[chosen])} times")
+    out["launches"]["dp_logistic_sqn_per_rank"] = int(e[0][chosen])
+
+    # (f) the sharded checkpoint, resumed by fresh ranks
+    xf = same_x_on_ranks("(f) resumed from save_sharded", f)
+    check(int(f[0]["niter_loaded"]) == NUM_BATCHES
+          and torch.equal(xf, xd),
+          "(f) save_sharded after epoch 1, load_sharded into 3 fresh ranks, "
+          "epoch 2: the uninterrupted run's bits")
+
+    # (g) times, each labelled
+    med = {k: float(np.median(v[0]["iters_per_s"]))
+           for k, v in (("dp_2x1", b), ("param_1x3", d_sqn))}
+    share = {k: float(np.median(v[0]["collective_share"]))
+             for k, v in (("dp_2x1", b), ("param_1x3", d_sqn))}
+    one = float(statistics.median(one_rank))
+    print(f"  (g) SQN iters/s, {GLOO_LABEL}: one rank (this process, before "
+          f"and after the clusters) {', '.join(f'{v:.1f}' for v in one_rank)}"
+          f" (median {one:.1f}); mesh (2, 1) "
+          f"{', '.join(f'{v:.1f}' for v in b[0]['iters_per_s'])} (median "
+          f"{med['dp_2x1']:.1f}, host share in collectives "
+          f"{share['dp_2x1']:.3f}); mesh (1, 3) "
+          f"{', '.join(f'{v:.1f}' for v in d_sqn[0]['iters_per_s'])} (median "
+          f"{med['param_1x3']:.1f}, host share in collectives "
+          f"{share['param_1x3']:.3f})", flush=True)
+    out["times"] = {"label": GLOO_LABEL, "one_rank_iters_per_s": one,
+                    "iters_per_s": med, "collective_host_share": share}
+    out["param_sharded_launches"] = {
+        what: {k: int(ranks[0][k]) for k in kernels + ("split_route",)}
+        for what, ranks in (("fused_sqn_1x3", d_sqn),
+                            ("fused_olbfgs_1x3", d_olbfgs))}
+    print(f"  phase 19 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def check_no_spills(report):
     """ptxas's report of the build (``-Xptxas -v``): every kernel of the
     four sources is in it, and none spills a byte."""
@@ -3029,6 +3516,8 @@ def main():
         print("chip_smoke: no CUDA device; this smoke needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    if "--rank" in sys.argv[1:]:        # one rank of a phase 19 cluster
+        return rank_main(sys.argv[1:])
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3070,7 +3559,7 @@ def main():
         return 0
 
     max_abs, timing = kernel_phase(dev)
-    sqn_launches, ips, streamed_ips = main_path_phase(dev)
+    sqn_launches, ips, streamed_ips, x_phase4 = main_path_phase(dev)
     parity_phase(dev)
     adaqn_max_abs, adaqn_share, adaqn_timing = adaqn_kernel_phase(dev)
     adaqn_launches, adaqn_ips = adaqn_main_path_phase(dev)
@@ -3087,6 +3576,7 @@ def main():
     drivers = drivers_phase(dev)
     front, _ = front_end_phase(dev)
     front_ips = front_end_times(dev)
+    sharded = sharded_phase(dev, x_phase4)
 
     # launches: the counts of the paths driven above (fused SQN, fused adaQN,
     # free-mode SQN at m = 10 and m = 20, free-mode adaQN, fused SQN
@@ -3127,6 +3617,14 @@ def main():
         "logistic_sparse_sqn", "minimize_sqn")})
     by_path["project_adaqn"]["logistic_fused_adaqn"] = \
         fe["logistic_fused_adaqn"]
+    # phase 19: (a) in this process; the ranks' counts of (b), (c), (e) per
+    # rank (each of the 2 ranks launched as many)
+    sl = sharded["launches"]
+    by_path[chosen].update({k: sl[k] for k in (
+        "mesh_1x1_fused_sqn", "dp_fused_sqn_per_rank",
+        "dp_logistic_sqn_per_rank")})
+    by_path["project_adaqn"]["dp_fused_adaqn_per_rank"] = \
+        sl["dp_fused_adaqn_per_rank"]
     for name, launches in (("fused_sqn_bf16", bf16["launches"]["block"]),
                            ("fused_sqn_bf16_interleaved",
                             bf16["launches"]["interleaved"]),
@@ -3171,7 +3669,12 @@ def main():
                 "launches": sum(by_path[name].values()),
                 "launches_by_path": by_path[name],
                 "max_abs_err": max_abs_err, **times, **bound_keys, **more,
-                **({"front_end": front_end} if name == chosen else {})}
+                **({"front_end": front_end, "sharded": sharded_record}
+                   if name == chosen else {})}
+    # the parameter-sharded paths take the split route: no kernel
+    sharded_record = {"param_sharded_paths_launch_none":
+                      sharded["param_sharded_launches"],
+                      "times": sharded["times"]}
     print(json.dumps({"kernels": [
         entry("direction_streamed", 309, max_abs, f32,
               direction_bound(MEM_SIZE, N_FLAGSHIP), bf16=timing["bfloat16"],

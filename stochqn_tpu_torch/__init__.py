@@ -32,8 +32,11 @@ streaming, metrics); and the front ends: the guided ``oLBFGS`` / ``SQN`` /
 ``models.logistic.StochasticLogisticRegression`` (dense and CSR, through
 ``models.sparse``), ``minimize``, the ``torch.optim`` adapter
 ``optim_adapter.OLBFGS`` with ``PytreeTrainer``, ``models.mlp`` and the
-``.npz`` checkpoints of ``utils.checkpoint``.  ROADMAP.md lists what comes
-next.
+``.npz`` checkpoints of ``utils.checkpoint``; and multi-GPU execution:
+``parallel`` (a ``(data, param)`` ``DeviceMesh``, data-parallel and
+parameter-sharded fused runs of the three optimizers, ``mesh=`` in the
+front ends, the collective recorder) with the sharded checkpoints
+``save_sharded`` / ``load_sharded``.  ROADMAP.md lists what comes next.
 """
 from stochqn_tpu_torch.api import MinimizeResult, minimize
 from stochqn_tpu_torch.convert import (
@@ -63,7 +66,8 @@ from stochqn_tpu_torch.ops.pairs import (commit_pair, conditional_flush,
                                          direction_is_bad, fisher_y)
 from stochqn_tpu_torch.ops.two_loop import (two_loop, two_loop_cached,
                                             two_loop_sequential)
-from stochqn_tpu_torch.utils.checkpoint import load_state, save_state
+from stochqn_tpu_torch.utils.checkpoint import (load_sharded, load_state,
+                                                save_sharded, save_state)
 
 __all__ = [
     "Task", "Info",
@@ -74,7 +78,7 @@ __all__ = [
     "FusedTrainer", "batchify", "shuffle_batched",
     "oLBFGS", "SQN", "adaQN", "StochasticLogisticRegression",
     "minimize", "MinimizeResult", "OLBFGS", "olbfgs", "PytreeTrainer",
-    "save_state", "load_state",
+    "save_state", "load_state", "save_sharded", "load_sharded",
     "losses",
     "commit_pair", "conditional_flush", "direction_is_bad", "fisher_y",
     "two_loop", "two_loop_cached", "two_loop_sequential",

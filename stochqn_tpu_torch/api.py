@@ -18,6 +18,8 @@ from stochqn_tpu_torch.core.config import AdaQNConfig, OLBFGSConfig, SQNConfig
 from stochqn_tpu_torch.fused import (FusedTrainer, _first_leaf, _flat,
                                      _tree_map, batchify, shuffle_batched)
 from stochqn_tpu_torch.optim_adapter import PytreeTrainer
+from stochqn_tpu_torch.parallel.mesh import (MeshComm, gather_state,
+                                             shard_batches)
 from stochqn_tpu_torch.utils.metrics import LossHistory, summarize_infos
 
 _CONFIGS = {"oLBFGS": OLBFGSConfig, "SQN": SQNConfig, "adaQN": AdaQNConfig}
@@ -36,7 +38,7 @@ def minimize(loss_fn: Callable, x0, data, *, optimizer: str = "adaQN",
              step_size: float = 1e-1, batch_size: Optional[int] = None,
              nepochs: int = 25, decr_step_size=None, tol: Optional[float] = None,
              shuffle_key: Optional[torch.Generator] = None, mesh=None,
-             **optimizer_kwargs) -> MinimizeResult:
+             reduction: str = "sum", **optimizer_kwargs) -> MinimizeResult:
     """Stochastically minimize ``loss_fn`` over batched data.
 
     Args:
@@ -54,14 +56,21 @@ def minimize(loss_fn: Callable, x0, data, *, optimizer: str = "adaQN",
         (guided-driver semantics).
       shuffle_key: a ``torch.Generator`` on the state's device; each epoch
         then reshuffles the rows (:func:`shuffle_batched`).
-      mesh: a sharded run is not ported yet (ROADMAP A.15).
+      mesh: a ``(data, param)`` ``DeviceMesh``
+        (:func:`stochqn_tpu_torch.parallel.make_mesh`), one process per
+        rank, each passing the full data: every epoch (shuffled with the
+        same generator state on every rank) runs on this rank's rows, the
+        state shards its parameter axis, and the result's ``x`` and
+        ``state`` are the gathered whole.  The epoch losses for ``tol``
+        are taken on all the data on every rank.
+      reduction: with ``mesh``, how the ranks' gradients and function
+        values combine: ``"sum"`` when ``loss_fn`` sums over the rows it
+        gets with no term outside the sum, ``"mean"`` when it averages
+        over them with every term inside
+        (:mod:`stochqn_tpu_torch.parallel.evaluate`).
       **optimizer_kwargs: forwarded to the optimizer config
         (``mem_size``, ``bfgs_upd_freq``, ``max_incr``, ...).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (a sharded run) is not ported yet (ROADMAP A.15, "
-            "multi-GPU)")
     if optimizer not in _CONFIGS:
         raise ValueError(f"unknown optimizer {optimizer!r}")
     cfg = _CONFIGS[optimizer].create(**optimizer_kwargs)
@@ -69,11 +78,12 @@ def minimize(loss_fn: Callable, x0, data, *, optimizer: str = "adaQN",
     is_flat = (isinstance(x0, (torch.Tensor, np.ndarray)) and x0.ndim == 1)
     if is_flat:
         trainer = FusedTrainer(optimizer, cfg, torch.func.grad(loss_fn),
-                               obj_fn=loss_fn)
+                               obj_fn=loss_fn, mesh=mesh, reduction=reduction)
         state = trainer.init(x0)
         flat_loss = loss_fn
     else:
-        trainer = PytreeTrainer(optimizer, cfg, loss_fn, x0)
+        trainer = PytreeTrainer(optimizer, cfg, loss_fn, x0, mesh=mesh,
+                                reduction=reduction)
         state = trainer.init(x0)
         flat_loss = trainer.trainer.obj_fn
 
@@ -94,17 +104,23 @@ def minimize(loss_fn: Callable, x0, data, *, optimizer: str = "adaQN",
                else decr_step_size(step_size, epoch))
         d = data if shuffle_key is None else shuffle_batched(data,
                                                              shuffle_key)
+        if mesh is not None:                # this rank's rows
+            d = shard_batches(d, mesh)
         state, infos = trainer.epoch(state, d, eta,
                                      aligned=niter % upd_freq == 0)
         niter += num_batches
         all_infos.append(infos)
         epochs_run += 1
         if tol is not None:
-            loss = float(flat_loss(state.x, _flat(data)))
+            x = state.x if mesh is None else MeshComm(mesh).gather_param(
+                [state.x], "gather x")[0]
+            loss = float(flat_loss(x, _flat(data)))
             losses.append(loss)
             if history.update(loss):
                 break
 
+    if mesh is not None:
+        state = gather_state(state, mesh)
     x_out = state.x if is_flat else trainer.params(state)
     return MinimizeResult(
         x=x_out, state=state, losses=losses,

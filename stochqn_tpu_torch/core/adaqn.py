@@ -68,12 +68,15 @@ def init(x0: torch.Tensor, cfg: AdaQNConfig) -> AdaQNState:
 
 
 def step(cfg: AdaQNConfig, state: AdaQNState, grad: torch.Tensor,
-         step_size: torch.Tensor) -> Tuple[AdaQNState, torch.Tensor]:
+         step_size: torch.Tensor, comm=None
+         ) -> Tuple[AdaQNState, torch.Tensor]:
     """The per-iteration adaQN work before any ``upd_freq`` boundary
     (``src/stochqn.c:1170-1197``): the Fisher append
     (``src/stochqn.c:1174``), the AdaGrad / RMSProp rescaling, the
     diagonal-H0 two-loop, the guard, the ``x`` and ``x_sum`` updates,
     ``section = 1``.  A NaN direction flushes the pair memory only.
+    ``comm``: the mesh of a sharded run
+    (:mod:`stochqn_tpu_torch.ops.two_loop`).
     Returns ``(state, bad)``; nothing is read on the host."""
     if not cfg.use_grad_diff:
         state = state.replace(fisher=state.fisher.append(grad))
@@ -82,9 +85,10 @@ def step(cfg: AdaQNConfig, state: AdaQNState, grad: torch.Tensor,
     h0_diag = (rescaled if cfg.h0_exact_reference
                else torch.rsqrt(acc_sq + cfg.scal_reg))
     d_mem = two_loop_cached(grad, state.mem, diag=h0_diag,
-                            use_pallas=cfg.use_pallas, coupling=cfg.coupling)
+                            use_pallas=cfg.use_pallas, coupling=cfg.coupling,
+                            comm=comm)
     d = torch.where(state.mem.count > 0, d_mem, rescaled)
-    bad = direction_is_bad(d) if cfg.check_nan else no_bad(d)
+    bad = direction_is_bad(d, comm) if cfg.check_nan else no_bad(d)
     x_new = torch.where(bad, state.x, state.x - step_size * d)
     state = state.replace(x=x_new, mem=conditional_flush(state.mem, bad),
                           grad_sum_sq=acc_sq, niter=state.niter + 1,

@@ -46,15 +46,18 @@ def init(x0: torch.Tensor, cfg: OLBFGSConfig) -> OLBFGSState:
 
 
 def step(cfg: OLBFGSConfig, state: OLBFGSState, grad: torch.Tensor,
-         step_size: torch.Tensor) -> Tuple[OLBFGSState, torch.Tensor]:
+         step_size: torch.Tensor, comm=None
+         ) -> Tuple[OLBFGSState, torch.Tensor]:
     """Section 1's work on the iterate and the memory
     (``src/stochqn.c:991-1011``): the uncollapsed direction, the NaN /
     magnitude guard, ``x += s`` with the candidate ``s = -eta d`` kept in
     ``s_pending``, the memory flushed on a bad direction (``x`` kept), and
     ``niter + 1``.  ``grad_prev`` and ``section`` are the caller's.
+    ``comm``: the mesh of a sharded run
+    (:mod:`stochqn_tpu_torch.ops.two_loop`).
     Returns ``(state, bad)``; nothing is read on the host."""
-    d = two_loop_cached(grad, state.mem, h0=cfg.hess_init)
-    bad = direction_is_bad(d) if cfg.check_nan else no_bad(d)
+    d = two_loop_cached(grad, state.mem, h0=cfg.hess_init, comm=comm)
+    bad = direction_is_bad(d, comm) if cfg.check_nan else no_bad(d)
     s_cand = -step_size * d
     mem = conditional_flush(state.mem.replace(s_pending=s_cand), bad)
     x_new = torch.where(bad, state.x, state.x + s_cand)

@@ -56,13 +56,16 @@ def init(x0: torch.Tensor, cfg: SQNConfig) -> SQNState:
 
 
 def step(cfg: SQNConfig, state: SQNState, grad: torch.Tensor,
-         step_size: torch.Tensor) -> Tuple[SQNState, torch.Tensor]:
+         step_size: torch.Tensor, comm=None
+         ) -> Tuple[SQNState, torch.Tensor]:
     """The per-iteration work of ``run_SQN`` section 1 before any
     ``upd_freq`` boundary (``src/stochqn.c:1050-1073``): direction, NaN /
     magnitude guard, ``x`` and ``x_sum`` updates, ``section = 1``.
+    ``comm``: the mesh of a sharded run
+    (:mod:`stochqn_tpu_torch.ops.two_loop`).
     Returns ``(state, bad)``; nothing is read on the host."""
-    d = two_loop_cached(grad, state.mem, collapsed=True)
-    bad = direction_is_bad(d) if cfg.check_nan else no_bad(d)
+    d = two_loop_cached(grad, state.mem, collapsed=True, comm=comm)
+    bad = direction_is_bad(d, comm) if cfg.check_nan else no_bad(d)
     x_new = torch.where(bad, state.x, state.x - step_size * d)
     state = state.replace(x=x_new, mem=conditional_flush(state.mem, bad),
                           niter=state.niter + 1, x_sum=state.x_sum + x_new,

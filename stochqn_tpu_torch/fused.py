@@ -46,6 +46,15 @@ package's with ``donate=True``; use the returned one.
 
 Batches are tensors or (nested) tuples, lists or dicts of tensors with a
 leading example axis, and epoch data has leaves ``[B, bs, ...]``.
+
+``FusedTrainer(mesh=...)`` runs the same steps on a
+``(data, param)`` ``DeviceMesh`` (:mod:`stochqn_tpu_torch.parallel`),
+one process per rank: the user's functions run on this rank's rows and
+are summed over the data axis (``reduction`` says how), and on a sharded
+param axis the state holds this rank's slice of every parameter-axis
+field and the ops sum their n-contractions over that axis.  GSPMD
+partitions a global ``grad_fn`` by itself; here the trainer has to be
+told how the ranks' results combine.  With no mesh nothing of this runs.
 """
 from __future__ import annotations
 
@@ -64,6 +73,11 @@ from stochqn_tpu_torch.core.state import AdaQNState, OLBFGSState, SQNState
 from stochqn_tpu_torch.models.losses import hvp_from_grad
 from stochqn_tpu_torch.ops.pairs import (commit_pair, conditional_flush,
                                          fisher_y)
+from stochqn_tpu_torch.parallel.evaluate import (data_parallel_grad,
+                                                 data_parallel_hvp,
+                                                 data_parallel_value)
+from stochqn_tpu_torch.parallel.mesh import (MeshComm, shard_batches,
+                                             shard_state)
 
 Batch = Any
 GradFn = Callable[[torch.Tensor, Batch], torch.Tensor]
@@ -126,7 +140,7 @@ def _cyclic_window(data, i: int, window: int, num_batches: int):
 
 
 def olbfgs_step(cfg: OLBFGSConfig, grad_fn: GradFn, state: OLBFGSState,
-                batch: Batch, step_size: torch.Tensor
+                batch: Batch, step_size: torch.Tensor, comm=None
                 ) -> Tuple[OLBFGSState, torch.Tensor]:
     """One full oLBFGS iteration: protocol sections 1 and 2 of
     ``run_oLBFGS`` (``src/stochqn.c:991-1031``) with two same-batch
@@ -137,17 +151,18 @@ def olbfgs_step(cfg: OLBFGSConfig, grad_fn: GradFn, state: OLBFGSState,
     (the pair is built within the step) and stay as they came in, as in
     the JAX package."""
     g = grad_fn(state.x, batch)
-    st, bad = olbfgs.step(cfg, state, g, step_size)
+    st, bad = olbfgs.step(cfg, state, g, step_size, comm)
     g2 = grad_fn(st.x, batch)              # same batch, new x
     mem, accepted = commit_pair(st.mem, g2 - g, cfg.min_curvature, cfg.y_reg,
-                                enabled=torch.logical_not(bad))
+                                enabled=torch.logical_not(bad), comm=comm)
     st = st.replace(mem=mem.replace(s_pending=state.mem.s_pending),
                     section=torch.ones_like(state.section))
     return st, commit_info(accepted | bad, step_info(bad))
 
 
 def _olbfgs_epoch_paired(cfg: OLBFGSConfig, grad_fn: GradFn,
-                         state: OLBFGSState, data, step_size: torch.Tensor
+                         state: OLBFGSState, data, step_size: torch.Tensor,
+                         comm=None, pair_grads=None
                          ) -> Tuple[OLBFGSState, torch.Tensor]:
     """An oLBFGS epoch with ONE batched gradient call per step instead of
     two (``FusedTrainer(paired_grads=True)``; the JAX package's
@@ -163,28 +178,31 @@ def _olbfgs_epoch_paired(cfg: OLBFGSConfig, grad_fn: GradFn,
     gradient that commits the last pending pair.  ``x``, the memory, the
     info codes and ``niter`` come out as :func:`olbfgs_step`'s, to the
     rounding of the batched gradient; ``s_pending`` is the last candidate
-    (the sequential step leaves it as it came in)."""
+    (the sequential step leaves it as it came in).  ``pair_grads`` (the
+    trainer's, on a mesh) replaces the ``vmap`` of ``grad_fn``."""
     num_batches = _first_leaf(data).shape[0]
     # [B, 2, bs, ...]: row k pairs batch k-1 (the pending commit's) with k
     paired = _tree_map(
         lambda a: torch.stack([torch.roll(a, 1, dims=0), a], dim=1), data)
-    pair_grads = torch.func.vmap(grad_fn, in_dims=(None, 0))
+    if pair_grads is None:
+        pair_grads = torch.func.vmap(grad_fn, in_dims=(None, 0))
     pend_g = torch.zeros_like(state.x)
     pend_ok = no_bad(state.x)
     bads, accs = [], []
     for k in range(num_batches):
         g_pair = pair_grads(state.x, _batch_at(paired, k))
         mem, acc = commit_pair(state.mem, g_pair[0] - pend_g,
-                               cfg.min_curvature, cfg.y_reg, enabled=pend_ok)
+                               cfg.min_curvature, cfg.y_reg, enabled=pend_ok,
+                               comm=comm)
         state, bad = olbfgs.step(cfg, state.replace(mem=mem), g_pair[1],
-                                 step_size)
+                                 step_size, comm)
         state = state.replace(section=torch.ones_like(state.section))
         pend_g, pend_ok = g_pair[1], torch.logical_not(bad)
         bads.append(bad)
         accs.append(acc)
     g2_last = grad_fn(state.x, _batch_at(data, num_batches - 1))
     mem, acc = commit_pair(state.mem, g2_last - pend_g, cfg.min_curvature,
-                           cfg.y_reg, enabled=pend_ok)
+                           cfg.y_reg, enabled=pend_ok, comm=comm)
     accs = torch.stack(accs[1:] + [acc])
     bads = torch.stack(bads)
     return (state.replace(mem=mem),
@@ -192,15 +210,15 @@ def _olbfgs_epoch_paired(cfg: OLBFGSConfig, grad_fn: GradFn,
 
 
 def _sqn_base(cfg: SQNConfig, grad_fn: GradFn, state: SQNState,
-              batch: Batch, step_size: torch.Tensor
+              batch: Batch, step_size: torch.Tensor, comm=None
               ) -> Tuple[SQNState, torch.Tensor]:
     """The minibatch gradient and :func:`core.sqn.step` on it."""
-    return sqn.step(cfg, state, grad_fn(state.x, batch), step_size)
+    return sqn.step(cfg, state, grad_fn(state.x, batch), step_size, comm)
 
 
 def _sqn_boundary(cfg: SQNConfig, grad_fn: GradFn, state: SQNState,
                   big: Batch, bad: torch.Tensor,
-                  hess_vec_fn: Optional[HessVecFn] = None
+                  hess_vec_fn: Optional[HessVecFn] = None, comm=None
                   ) -> Tuple[SQNState, torch.Tensor]:
     """The every-``upd_freq`` correction-pair work
     (``src/stochqn.c:1078-1141``), on the already assembled big batch.
@@ -220,7 +238,7 @@ def _sqn_boundary(cfg: SQNConfig, grad_fn: GradFn, state: SQNState,
         gb = grad_fn(x_avg, big)        # first round: at the archived average
         mem2, acc = commit_pair(mem_p, gb - st.grad_prev, cfg.min_curvature,
                                 cfg.y_reg, enabled=not_first,
-                                direction_cache=True)
+                                direction_cache=True, comm=comm)
         keep = is_first | acc
         st = st.replace(mem=mem2,
                         grad_prev=torch.where(keep, gb, st.grad_prev),
@@ -232,7 +250,8 @@ def _sqn_boundary(cfg: SQNConfig, grad_fn: GradFn, state: SQNState,
         else:
             hv = hvp_from_grad(grad_fn)(x_avg, s_cand, big)
         mem2, acc = commit_pair(mem_p, hv, cfg.min_curvature, y_reg=0.0,
-                                enabled=not_first, direction_cache=True)
+                                enabled=not_first, direction_cache=True,
+                                comm=comm)
         # archive happens on first AND (accept or reject) later rounds
         st = st.replace(mem=mem2, x_avg_prev=x_avg,
                         x_sum=torch.zeros_like(st.x_sum))
@@ -241,15 +260,15 @@ def _sqn_boundary(cfg: SQNConfig, grad_fn: GradFn, state: SQNState,
 
 
 def _adaqn_base(cfg: AdaQNConfig, grad_fn: GradFn, state: AdaQNState,
-                batch: Batch, step_size: torch.Tensor
+                batch: Batch, step_size: torch.Tensor, comm=None
                 ) -> Tuple[AdaQNState, torch.Tensor]:
     """The minibatch gradient and :func:`core.adaqn.step` on it."""
-    return adaqn.step(cfg, state, grad_fn(state.x, batch), step_size)
+    return adaqn.step(cfg, state, grad_fn(state.x, batch), step_size, comm)
 
 
 def _adaqn_boundary(cfg: AdaQNConfig, grad_fn: GradFn,
                     obj_fn: Optional[ObjFn], state: AdaQNState, big: Batch,
-                    fval_batch: Batch, bad: torch.Tensor
+                    fval_batch: Batch, bad: torch.Tensor, comm=None
                     ) -> Tuple[AdaQNState, torch.Tensor]:
     """The every-``upd_freq`` adaQN work: function-value guard and pair
     commit (``src/stochqn.c:1201-1308``).  Call exactly when
@@ -284,15 +303,15 @@ def _adaqn_boundary(cfg: AdaQNConfig, grad_fn: GradFn,
     if cfg.use_grad_diff:
         gb = grad_fn(x_avg, big)
         mem2, acc = commit_pair(mem_p, gb - st.grad_prev, cfg.min_curvature,
-                                cfg.y_reg, enabled=commit_ok)
+                                cfg.y_reg, enabled=commit_ok, comm=comm)
         st = st.replace(
             mem=mem2,
             grad_prev=torch.where(is_first | acc, gb, st.grad_prev),
             x_avg_prev=torch.where(is_first, x_avg, st.x_avg_prev))
     else:
-        mem2, acc = commit_pair(mem_p, fisher_y(st.fisher, s_cand),
+        mem2, acc = commit_pair(mem_p, fisher_y(st.fisher, s_cand, comm),
                                 cfg.min_curvature, y_reg=0.0,
-                                enabled=commit_ok)
+                                enabled=commit_ok, comm=comm)
         st = st.replace(
             mem=mem2,
             x_avg_prev=torch.where(is_first | acc, x_avg, st.x_avg_prev))
@@ -312,33 +331,33 @@ def _adaqn_boundary(cfg: AdaQNConfig, grad_fn: GradFn,
 
 def sqn_step(cfg: SQNConfig, grad_fn: GradFn, state: SQNState, batch: Batch,
              big_batch_thunk: Callable[[], Batch], step_size: torch.Tensor,
-             boundary: bool, hess_vec_fn: Optional[HessVecFn] = None
-             ) -> Tuple[SQNState, torch.Tensor]:
+             boundary: bool, hess_vec_fn: Optional[HessVecFn] = None,
+             comm=None) -> Tuple[SQNState, torch.Tensor]:
     """One SQN iteration of the generic layout.  ``boundary`` is the JAX
     package's ``lax.cond`` predicate ``niter % upd_freq == 0`` after this
     step, decided by the caller on its host count of iterations (never
     read from ``state.niter``)."""
-    state, bad = _sqn_base(cfg, grad_fn, state, batch, step_size)
+    state, bad = _sqn_base(cfg, grad_fn, state, batch, step_size, comm)
     if not boundary:
         return state, step_info(bad)
     return _sqn_boundary(cfg, grad_fn, state, big_batch_thunk(), bad,
-                         hess_vec_fn)
+                         hess_vec_fn, comm)
 
 
 def adaqn_step(cfg: AdaQNConfig, grad_fn: GradFn, obj_fn: Optional[ObjFn],
                state: AdaQNState, batch: Batch,
                big_batch_thunk: Callable[[], Batch],
                fval_batch_thunk: Callable[[], Batch], step_size: torch.Tensor,
-               boundary: bool) -> Tuple[AdaQNState, torch.Tensor]:
+               boundary: bool, comm=None) -> Tuple[AdaQNState, torch.Tensor]:
     """One adaQN iteration of the generic layout; ``boundary`` as in
     :func:`sqn_step`."""
     if cfg.max_incr > 0 and obj_fn is None:
         raise ValueError("adaQN with max_incr needs an objective function")
-    state, bad = _adaqn_base(cfg, grad_fn, state, batch, step_size)
+    state, bad = _adaqn_base(cfg, grad_fn, state, batch, step_size, comm)
     if not boundary:
         return state, step_info(bad)
     return _adaqn_boundary(cfg, grad_fn, obj_fn, state, big_batch_thunk(),
-                           fval_batch_thunk(), bad)
+                           fval_batch_thunk(), bad, comm)
 
 
 @dataclasses.dataclass
@@ -361,6 +380,22 @@ class FusedTrainer:
       paired_grads: oLBFGS only: one batched gradient call per step
         (:func:`_olbfgs_epoch_paired`) instead of two.  The same steps;
         off by default, as in the JAX package (PERF.md has its times).
+      mesh: a ``(data, param)`` ``DeviceMesh``
+        (:func:`stochqn_tpu_torch.parallel.make_mesh`) for a sharded run,
+        one process per rank.  :meth:`init` then returns this rank's part
+        of the state (:func:`~stochqn_tpu_torch.parallel.shard_state`);
+        :meth:`round`, :meth:`epoch` and :meth:`epochs` take this rank's
+        rows of each batch (:func:`~stochqn_tpu_torch.parallel.
+        shard_batches`), while :meth:`epochs_scheduled` and
+        :meth:`run_epochs`, which gather rows themselves, take the full
+        data and take the rank's rows after each gather.  The functions see
+        the full ``x`` and this rank's rows; ``val_data`` is the full
+        validation batch on every rank.
+      reduction: how the ranks' results of ``grad_fn``, ``hess_vec_fn``
+        and a big-batch ``obj_fn`` combine over the data axis: ``"sum"``
+        (functions that sum over their rows, nothing outside the sum) or
+        ``"mean"`` (functions that average over their rows, everything
+        inside the mean); see :mod:`stochqn_tpu_torch.parallel.evaluate`.
     """
 
     optimizer: str
@@ -370,6 +405,8 @@ class FusedTrainer:
     val_data: Optional[Batch] = None
     hess_vec_fn: Optional[HessVecFn] = None
     paired_grads: bool = False
+    mesh: Any = None
+    reduction: str = "sum"
 
     def __post_init__(self):
         kind = self.optimizer
@@ -385,18 +422,49 @@ class FusedTrainer:
                 "adaQN with max_incr needs an objective function "
                 "(pass obj_fn=..., or max_incr=None to disable the "
                 "function-value guard)")
+        self._evaluators()
+
+    def _evaluators(self):
+        """The functions the steps call: the user's as given with no mesh;
+        on a mesh, wrapped to take this rank's slice of ``x`` and rows
+        and to return this rank's slice of the sum over the data axis
+        (:mod:`stochqn_tpu_torch.parallel.evaluate`)."""
+        self._comm = None
+        self._grad, self._hvp = self.grad_fn, self.hess_vec_fn
+        self._obj = self._val_obj = self.obj_fn
+        self._pair_grads = None
+        if self.mesh is None:
+            return
+        comm = self._comm = MeshComm(self.mesh)
+        red = self.reduction
+        self._grad = data_parallel_grad(self.grad_fn, comm, red)
+        self._hvp = data_parallel_hvp(self.grad_fn, comm, red,
+                                      hess_vec_fn=self.hess_vec_fn)
+        if self.paired_grads:
+            self._pair_grads = data_parallel_grad(
+                torch.func.vmap(self.grad_fn, in_dims=(None, 0)), comm, red)
+        if self.obj_fn is not None:
+            obj_fn = self.obj_fn
+            self._obj = data_parallel_value(obj_fn, comm, red)
+
+            def val_obj(x, batch):      # the full validation set: no sum
+                (x_full,) = comm.gather_param([x], "gather x")
+                return obj_fn(x_full, batch)
+            self._val_obj = val_obj
 
     def init(self, x0, device=None):
         """Fresh state at ``x0`` (copied), on ``device``.  With no
         ``device`` a tensor stays where it is, and anything else (a numpy
         array, a list) goes to the card: no CUDA device raises; pass
-        ``device="cpu"`` for the CPU."""
+        ``device="cpu"`` for the CPU.  On a mesh, this rank's part of the
+        state."""
         if not isinstance(x0, torch.Tensor):
             device = resolve_device(
                 device, "FusedTrainer.init with an x0 that is no tensor")
         init = {"oLBFGS": olbfgs.init, "SQN": sqn.init,
                 "adaQN": adaqn.init}[self.optimizer]
-        return init(torch.as_tensor(x0, device=device), self.cfg)
+        state = init(torch.as_tensor(x0, device=device), self.cfg)
+        return state if self.mesh is None else shard_state(state, self.mesh)
 
     def round(self, state, round_data, step_size
               ) -> Tuple[Any, torch.Tensor]:
@@ -407,28 +475,29 @@ class FusedTrainer:
         one :func:`olbfgs_step` per minibatch, of any count."""
         L = _first_leaf(round_data).shape[0]
         eta = scalar_like(step_size, state.x)
+        comm = self._comm
         if self.optimizer == "oLBFGS":
             infos = []
             for i in range(L):
-                state, info = olbfgs_step(self.cfg, self.grad_fn, state,
-                                          _batch_at(round_data, i), eta)
+                state, info = olbfgs_step(self.cfg, self._grad, state,
+                                          _batch_at(round_data, i), eta, comm)
                 infos.append(info)
             return state, torch.stack(infos)
         base = _sqn_base if self.optimizer == "SQN" else _adaqn_base
         bads = []
         for i in range(L):
-            state, bad = base(self.cfg, self.grad_fn, state,
-                              _batch_at(round_data, i), eta)
+            state, bad = base(self.cfg, self._grad, state,
+                              _batch_at(round_data, i), eta, comm)
             bads.append(bad)
         big = _flat(round_data)
         if self.optimizer == "SQN":
-            state, binfo = _sqn_boundary(self.cfg, self.grad_fn, state, big,
-                                         bads[-1], self.hess_vec_fn)
+            state, binfo = _sqn_boundary(self.cfg, self._grad, state, big,
+                                         bads[-1], self._hvp, comm)
         else:
-            fval = self.val_data if self.val_data is not None else big
-            state, binfo = _adaqn_boundary(self.cfg, self.grad_fn,
-                                           self.obj_fn, state, big, fval,
-                                           bads[-1])
+            fval, obj = ((self.val_data, self._val_obj)
+                         if self.val_data is not None else (big, self._obj))
+            state, binfo = _adaqn_boundary(self.cfg, self._grad, obj, state,
+                                           big, fval, bads[-1], comm)
         infos = step_info(torch.stack(bads))
         infos[L - 1] = binfo
         return state, infos
@@ -460,17 +529,22 @@ class FusedTrainer:
             def big(i=i):
                 return _cyclic_window(data, i, window, num_batches)
             if self.optimizer == "SQN":
-                state, info = sqn_step(self.cfg, self.grad_fn, state,
+                state, info = sqn_step(self.cfg, self._grad, state,
                                        _batch_at(data, i), big, eta,
-                                       phase == 0, self.hess_vec_fn)
+                                       phase == 0, self._hvp, self._comm)
             else:
-                fval = ((lambda: self.val_data)
-                        if self.val_data is not None else big)
-                state, info = adaqn_step(self.cfg, self.grad_fn, self.obj_fn,
-                                         state, _batch_at(data, i), big,
-                                         fval, eta, phase == 0)
+                fval, obj = (((lambda: self.val_data), self._val_obj)
+                             if self.val_data is not None else
+                             (big, self._obj))
+                state, info = adaqn_step(self.cfg, self._grad, obj, state,
+                                         _batch_at(data, i), big, fval, eta,
+                                         phase == 0, self._comm)
             infos.append(info)
         return state, torch.stack(infos)
+
+    def _local(self, data):
+        """This rank's rows of batched data (all of them with no mesh)."""
+        return data if self.mesh is None else shard_batches(data, self.mesh)
 
     def _phase(self, state, aligned) -> int:
         """``niter % upd_freq`` at the start of a call: 0 where the caller
@@ -486,9 +560,10 @@ class FusedTrainer:
         not forced, else per step."""
         if self.optimizer == "oLBFGS":
             if self.paired_grads:
-                return _olbfgs_epoch_paired(self.cfg, self.grad_fn, state,
+                return _olbfgs_epoch_paired(self.cfg, self._grad, state,
                                             data,
-                                            scalar_like(step_size, state.x))
+                                            scalar_like(step_size, state.x),
+                                            self._comm, self._pair_grads)
             return self.round(state, data, step_size)
         num_batches = _first_leaf(data).shape[0]
         L = self.cfg.upd_freq
@@ -572,8 +647,9 @@ class FusedTrainer:
                                    (nepochs,))
 
         def gathered(e):
-            return _tree_map(lambda a: a.index_select(0, orders[e]).reshape(
-                (nbatch, batch_size) + tuple(a.shape[1:])), flat_data)
+            return self._local(_tree_map(
+                lambda a: a.index_select(0, orders[e]).reshape(
+                    (nbatch, batch_size) + tuple(a.shape[1:])), flat_data))
         return self._drive(state, (gathered(e) for e in range(nepochs)),
                            steps, aligned)
 
@@ -593,10 +669,12 @@ class FusedTrainer:
         The passed-in ``state`` is consumed, as the JAX package's with
         ``donate=True``; the JAX package's ``run_epochs`` keeps it by
         default."""
+        local = self._local(data) if shuffle is None else None
+
         def epoch_data():
             for _ in range(nepochs):
-                yield data if shuffle is None else shuffle_batched(data,
-                                                                   shuffle)
+                yield local if shuffle is None else self._local(
+                    shuffle_batched(data, shuffle))
         steps = [scalar_like(step_size if decr_step_size is None
                              else decr_step_size(step_size, e), state.x)
                  for e in range(nepochs)]

@@ -45,6 +45,8 @@ from scipy.sparse import issparse, vstack as sp_vstack
 from stochqn_tpu_torch.core.enums import INFO_NAMES, Info
 from stochqn_tpu_torch.free import SQN_free, adaQN_free, oLBFGS_free
 from stochqn_tpu_torch.fused import FusedTrainer, batchify
+from stochqn_tpu_torch.parallel.mesh import (MeshComm, gather_state,
+                                             shard_batches, shard_state)
 from stochqn_tpu_torch.utils.schedules import step_size_const, step_size_sqrt
 
 
@@ -320,7 +322,7 @@ class _GuidedBase:
         return X
 
     def fit(self, X, y, sample_weight=None, additional_kwargs={}, valset=None,
-            engine="protocol", mesh=None):
+            engine="protocol", mesh=None, reduction="sum"):
         """Fit over ``nepochs`` epochs of ``batches_per_epoch`` batches,
         optionally early-stopping on a validation objective.
 
@@ -347,14 +349,27 @@ class _GuidedBase:
         one (:meth:`~stochqn_tpu_torch.free.SQN_free.adopt_state`), so
         ``partial_fit`` continues from there.
 
-        ``mesh`` (a sharded fit) is not ported yet (ROADMAP A.15).
+        ``mesh`` (fused engine only): a ``(data, param)`` ``DeviceMesh``
+        (:func:`stochqn_tpu_torch.parallel.make_mesh`), one process per
+        rank, each calling ``fit`` with the full data.  Every rank draws
+        the same shuffle (numpy's, seeded as above) and runs the
+        callables on its rows of each batch; the state shards its
+        parameter axis over ``param``.  ``reduction`` says how the ranks'
+        results combine (:mod:`stochqn_tpu_torch.parallel.evaluate`):
+        ``"sum"`` for callables that sum over the rows they get with no
+        term outside the sum, ``"mean"`` for callables that average over
+        them with every term (a penalty) inside; the data axis must
+        divide the batch size.  ``x``, the free-mode state handed back
+        and ``partial_fit`` after the fit are those of the whole,
+        gathered state.
         """
         if engine not in ("protocol", "fused"):
             raise ValueError("'engine' must be 'protocol' or 'fused'")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (a sharded fused fit) is not ported yet (ROADMAP "
-                "A.15, multi-GPU)")
+        if mesh is not None and engine != "fused":
+            raise ValueError("'mesh' requires engine='fused' (the protocol "
+                             "loop is host-driven; use "
+                             "parallel.data_parallel_grad to shard its "
+                             "evaluations instead)")
         # introspection: how the LAST fit dispatched (refined in
         # _fit_fused; stays "protocol" on protocol runs AND on fused
         # runs that fall back before reaching _fit_fused)
@@ -391,7 +406,10 @@ class _GuidedBase:
             if reason is None:
                 return self._fit_fused(X, y, sample_weight,
                                        additional_kwargs, X_val, y_val,
-                                       w_val)
+                                       w_val, mesh, reduction)
+            if mesh is not None:
+                raise ValueError(f"mesh requires the fused engine, which "
+                                 f"is unavailable here ({reason})")
             warnings.warn(f"engine='fused' unavailable ({reason}); "
                           "falling back to the protocol loop.")
 
@@ -548,12 +566,14 @@ class _GuidedBase:
                       f"place of hess_vec_fun: {reason}")
         return None
 
-    def _fit_fused(self, X, y, w, additional_kwargs, X_val, y_val, w_val):
+    def _fit_fused(self, X, y, w, additional_kwargs, X_val, y_val, w_val,
+                   mesh=None, reduction="sum"):
         """The epochs on :class:`FusedTrainer`.  Same epoch shuffle order
         (``np.random.seed(random_state + epoch)`` + argsort), step schedule,
         early stopping and callbacks as the protocol path; see ``fit`` for
         the float-order deltas.  ``orders`` and the step sizes are built on
-        the host once and copied to the state's device once."""
+        the host once and copied to the state's device once.  On a mesh
+        the state is this rank's part and the batches its rows."""
         dtype, device = self.optimizer.dtype, self.optimizer.device
         grad_fn, obj_fn, hess_vec_fn = self._wrap_torch_funs(
             additional_kwargs)
@@ -571,9 +591,20 @@ class _GuidedBase:
         trainer = FusedTrainer(
             self.optimizer_name, self.optimizer._cfg, grad_fn,
             obj_fn=obj_fn if self._fused_needs_obj() else None,
-            val_data=val_data, hess_vec_fn=hess_vec_fn)
+            val_data=val_data, hess_vec_fn=hess_vec_fn, mesh=mesh,
+            reduction=reduction)
+
+        def local(data):
+            return data if mesh is None else shard_batches(data, mesh)
+
+        def host_x(state):
+            x = state.x if mesh is None else MeshComm(mesh).gather_param(
+                [state.x], "gather x")[0]
+            return x.cpu().numpy()
 
         state = self.optimizer.state
+        if mesh is not None:
+            state = shard_state(state, mesh)
         B = self.batches_per_epoch
         self.batch_size = X.shape[0] // B
         L = getattr(self.optimizer, "bfgs_upd_freq", 1)
@@ -631,7 +662,7 @@ class _GuidedBase:
                          for e in range(self.nepochs)], dtype=dtype,
                         device=device)
                 state, infos = trainer.epochs(
-                    state, batchify(parts, self.batch_size), steps,
+                    state, local(batchify(parts, self.batch_size)), steps,
                     nepochs=self.nepochs, aligned=aligned)
             infos_np = infos.cpu().numpy()           # [nepochs, B]
             last_info = Info(int(infos_np[-1, -1]))
@@ -640,7 +671,7 @@ class _GuidedBase:
                     self._print_infos(infos_np[epoch], niter + epoch * B,
                                       epoch)
             self.epoch = self.nepochs - 1
-            return self._finish_fused(state, last_info)
+            return self._finish_fused(state, last_info, mesh)
 
         # Shuffling is cumulative like the protocol loop's (each epoch
         # reshuffles the already-shuffled rows), so the two engines see
@@ -655,7 +686,8 @@ class _GuidedBase:
                 data = tuple(p.index_select(0, order) for p in parts)
             eta = self.decr_step_size(self.step_size, self.epoch)
             state, infos = trainer.epoch(state,
-                                         batchify(data, self.batch_size),
+                                         local(batchify(data,
+                                                        self.batch_size)),
                                          eta, aligned=niter % L == 0)
             infos_np = infos.cpu().numpy()
             last_info = Info(int(infos_np[-1]))
@@ -663,7 +695,7 @@ class _GuidedBase:
                 self._print_infos(infos_np, niter, self.epoch)
             niter += B
 
-            x_np = state.x.cpu().numpy()
+            x_np = host_x(state)
             if self.callback_epoch is not None:
                 self.callback_epoch(x_np, **self.kwargs_cb)
 
@@ -680,7 +712,7 @@ class _GuidedBase:
                     break
                 obj_last_epoch = obj
 
-        return self._finish_fused(state, last_info)
+        return self._finish_fused(state, last_info, mesh)
 
     def _print_infos(self, row, base, epoch):
         """The protocol loop's verbose lines for one fused epoch's codes."""
@@ -688,11 +720,13 @@ class _GuidedBase:
             print(f"{self.optimizer_name} - at iteration {base + int(i) + 1},"
                   f" epoch {epoch + 1}: {INFO_NAMES[Info(int(row[i]))]}")
 
-    def _finish_fused(self, state, last_info):
-        """Hand the live state back to the free-mode protocol object: the
-        fused steps end exactly at an iteration boundary (section 1,
-        awaiting calc_grad), so partial_fit / run_optimizer continue
-        seamlessly."""
+    def _finish_fused(self, state, last_info, mesh=None):
+        """Hand the live state (gathered, on a mesh) back to the free-mode
+        protocol object: the fused steps end exactly at an iteration
+        boundary (section 1, awaiting calc_grad), so partial_fit /
+        run_optimizer continue seamlessly."""
+        if mesh is not None:
+            state = gather_state(state, mesh)
         self.optimizer.adopt_state(state)
         self.x = state.x.cpu().numpy().astype(self.x.dtype).reshape(-1)
         self.req = {

@@ -38,6 +38,8 @@ from stochqn_tpu_torch.core.protocol import resolve_device
 from stochqn_tpu_torch.free import _resolve_dtype
 from stochqn_tpu_torch.fused import FusedTrainer, batchify, shuffle_batched
 from stochqn_tpu_torch.guided import SQN, _numpy_dtype, adaQN, oLBFGS
+from stochqn_tpu_torch.parallel.mesh import (MeshComm, gather_state,
+                                             mesh_shape, shard_batches)
 from stochqn_tpu_torch.models import losses
 from stochqn_tpu_torch.models import sparse as sparse_losses
 from stochqn_tpu_torch.utils.metrics import LossHistory
@@ -95,8 +97,17 @@ class StochasticLogisticRegression:
     "adaQN"``, and extra ``optimizer_kwargs`` flow to the underlying guided
     optimizer (protocol engine) or optimizer config (fused engine).
     ``dtype`` (a ``torch.dtype``) is the compute dtype, float32 by
-    default; ``device`` where the model computes.  ``mesh`` (a sharded
-    fused fit) is not ported yet (ROADMAP A.15).
+    default; ``device`` where the model computes.
+
+    ``mesh`` (fused engine only): a ``(data, param)`` ``DeviceMesh``
+    (:func:`stochqn_tpu_torch.parallel.make_mesh`), one process per rank,
+    each calling ``fit`` with the full data: every rank shuffles the whole
+    epoch with the same generator, takes its rows of each batch, and the
+    state shards its parameter axis.  The loss is a weighted sum over the
+    rows plus the penalty, summed over the data ranks: each rank's
+    functions carry ``reg_param / n_data`` of the penalty, so that it
+    counts once.  ``coef_``, prediction and the fitted state are the
+    gathered whole.
     """
 
     def __init__(self, reg_param=1e-3, fit_intercept=True, random_state=1,
@@ -109,9 +120,10 @@ class StochasticLogisticRegression:
         if engine not in ("protocol", "fused"):
             raise ValueError("'engine' must be 'protocol' or 'fused'")
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (a sharded fused fit) is not ported yet (ROADMAP "
-                "A.15, multi-GPU)")
+            if engine != "fused":
+                raise ValueError("'mesh' requires engine='fused'")
+            mesh_shape(mesh)            # a (data, param) DeviceMesh
+        self.mesh = mesh
         if step_size <= 0:
             raise ValueError("'step_size' must be positive")
         if reg_param < 0:
@@ -356,6 +368,10 @@ class StochasticLogisticRegression:
             Yd = self._tensor(2.0 * (np.asarray(y) > 0) - 1.0)
         Wd = self._tensor(sample_weight)
         reg = self.reg_param
+        # on a mesh the ranks' results are summed: each carries its share
+        # of the penalty
+        reg_rank = reg if self.mesh is None else reg / MeshComm(
+            self.mesh).n_data
 
         has_val = valset_frac is not None
         if has_val:
@@ -374,24 +390,24 @@ class StochasticLogisticRegression:
 
         def grad_fn(x, batch):
             *fb, Yb, wb = batch
-            return grad_core(x, *fb, Yb, wb, reg)
+            return grad_core(x, *fb, Yb, wb, reg_rank)
 
         def obj_fn(x, batch):
             *fb, Yb, wb = batch
-            return loss_core(x, *fb, Yb, wb, reg)
+            return loss_core(x, *fb, Yb, wb, reg_rank)
 
         def hess_vec_fn(x, v, batch):
             # Closed-form Hessian-vector product: the same function the
             # protocol engine gets via _build_funs (and the reference via
             # its hess_vec_fun callback, src/stochqn.c:1105).
             *fb, Yb, wb = batch
-            return hess_core(x, v, *fb, Yb, wb, reg)
+            return hess_core(x, v, *fb, Yb, wb, reg_rank)
 
         cfg_cls = {"oLBFGS": OLBFGSConfig, "SQN": SQNConfig,
                    "adaQN": AdaQNConfig}[self.optimizer_name]
         trainer = FusedTrainer(self.optimizer_name, cfg_cls.create(**kw),
                                grad_fn, obj_fn=obj_fn,
-                               hess_vec_fn=hess_vec_fn)
+                               hess_vec_fn=hess_vec_fn, mesh=self.mesh)
         state = trainer.init(torch.as_tensor(w0, dtype=dtype, device=device))
 
         batch_size = max(1, Yd.shape[0] // int(batches_per_epoch))
@@ -405,16 +421,22 @@ class StochasticLogisticRegression:
         num_batches = Yd.shape[0] // batch_size
         for epoch in range(int(nepochs)):
             d = shuffle_batched(data, gen) if shuffle else data
+            if self.mesh is not None:       # this rank's rows
+                d = shard_batches(d, self.mesh)
             state, _ = trainer.epoch(state, d, decr(step_size, epoch),
                                      aligned=niter % upd_freq == 0)
             niter += num_batches
             if has_val:
-                lv = float(loss_core(state.x, *feats_val, Y_val, W_val, reg))
+                x = state.x if self.mesh is None else MeshComm(
+                    self.mesh).gather_param([state.x], "gather x")[0]
+                lv = float(loss_core(x, *feats_val, Y_val, W_val, reg))
                 if verbose:
                     print(f"{self.optimizer_name} - epoch {epoch + 1:2d}, "
                           f"val f(x): {lv:.6f}")
                 if history.update(lv):
                     break
+        if self.mesh is not None:
+            state = gather_state(state, self.mesh)
         self._x_fused = state.x.cpu().numpy().astype(np.float64)
         self._fused_state = state
         self.is_fitted = True

@@ -12,6 +12,12 @@ order ``[s_0 .. s_{m-1}, y_0 .. y_{m-1}]`` (:class:`BFGSMemory`) and
 interleaved order ``[s_0, y_0, s_1, y_1, ...]``
 (:class:`BFGSMemoryInterleaved`).  ``gram``, ``c0`` and ``cg`` follow the
 memory's order; strided slices convert between the two.
+
+``comm`` (a :class:`stochqn_tpu_torch.parallel.mesh.MeshComm`, or None):
+on a sharded param axis the vectors and rows are this rank's column
+slices, and each function sums its n-contractions in one all-reduce
+(:func:`_commit_sharded` for the commit); with no mesh, or one rank on the
+param axis, nothing here changes.
 """
 from __future__ import annotations
 
@@ -21,7 +27,8 @@ import torch
 
 from stochqn_tpu_torch.core.state import (BFGSMemory, BFGSMemoryInterleaved,
                                           FisherMemory)
-from stochqn_tpu_torch.ops.two_loop import _chrono_perm, _mem_mm
+from stochqn_tpu_torch.ops.two_loop import (_chrono_perm, _mem_mm, _psum,
+                                            _sharded)
 
 
 def _gram_cols(buf: torch.Tensor, row_s: torch.Tensor, row_y: torch.Tensor,
@@ -31,12 +38,18 @@ def _gram_cols(buf: torch.Tensor, row_s: torch.Tensor, row_y: torch.Tensor,
                         _mem_mm(buf, row_y, acc_t)], dim=1)
 
 
-def direction_is_bad(direction: torch.Tensor) -> torch.Tensor:
+def direction_is_bad(direction: torch.Tensor, comm=None) -> torch.Tensor:
     """Reference guard: non-finite direction, or ``||d||_2 > 1e3 * n``
     (``src/stochqn.c:827-829``), as one reduction: a NaN/Inf entry makes
-    the norm NaN/Inf, and both fail ``norm <= threshold``."""
+    the norm NaN/Inf, and both fail ``norm <= threshold``.  On a sharded
+    param axis the squares are summed over the ranks and ``n`` is the
+    global parameter count, not the slice's."""
     n = direction.shape[0]
     acc_t = torch.promote_types(direction.dtype, torch.float32)
+    if _sharded(comm):
+        d = direction.to(acc_t)
+        (sq,) = _psum(comm, torch.dot(d, d).reshape(1), label="guard")
+        return torch.logical_not(torch.sqrt(sq[0]) <= 1e3 * n * comm.n_param)
     norm = torch.linalg.vector_norm(direction.to(acc_t))
     return torch.logical_not(norm <= 1e3 * n)
 
@@ -51,7 +64,7 @@ def conditional_flush(mem: BFGSMemory, pred: torch.Tensor) -> BFGSMemory:
 
 def commit_pair(mem: BFGSMemory, y_cand: torch.Tensor, min_curvature: float,
                 y_reg: float, enabled: Optional[torch.Tensor] = None,
-                direction_cache: bool = False
+                direction_cache: bool = False, comm=None
                 ) -> Tuple[BFGSMemory, torch.Tensor]:
     """Try to commit ``(mem.s_pending, y_cand [+ y_reg * s])`` into the
     memory (either layout).
@@ -67,10 +80,17 @@ def commit_pair(mem: BFGSMemory, y_cand: torch.Tensor, min_curvature: float,
     buffers, so ``mem`` is consumed: read only ``new_mem`` afterwards.
     Interleaved shift mode builds a new buffer ``[new pair; sy[:-2]]``,
     selected on the device by ``accepted``, and leaves ``head`` at 0.
+
+    On a sharded param axis (``comm``) the commit is
+    :func:`_commit_sharded`: the same accept test and the same memory,
+    with every n-contraction in one all-reduce.
     """
     s = mem.s_pending
     if y_reg > 0:
         y_cand = y_cand + y_reg * s
+    if _sharded(comm):
+        return _commit_sharded(mem, s, y_cand, min_curvature, enabled,
+                               direction_cache, comm)
 
     if min_curvature > 0:
         acc_t = torch.promote_types(s.dtype, torch.float32)
@@ -128,6 +148,88 @@ def commit_pair(mem: BFGSMemory, y_cand: torch.Tensor, min_curvature: float,
         new_head = torch.where(accepted, torch.remainder(mem.head + 1, size),
                                mem.head)
 
+    new_count = torch.where(accepted, torch.clamp(mem.count + 1, max=size),
+                            mem.count)
+    cache = _small_cache(gram, new_head, new_count, size,
+                         direction_cache=direction_cache,
+                         interleaved=interleaved, shift=shift)
+    return mem.replace(gram=gram, head=new_head, count=new_count,
+                       **buffers, **cache), accepted
+
+
+def _commit_sharded(mem, s: torch.Tensor, y_cand: torch.Tensor,
+                    min_curvature: float, enabled, direction_cache: bool,
+                    comm) -> Tuple[BFGSMemory, torch.Tensor]:
+    """:func:`commit_pair` on a sharded param axis, with one all-reduce.
+
+    Unsharded, the accept test (``s.y``, ``s.s``) comes first and the Gram
+    pass runs over the rows as written after it: two dependent sums.
+    Here every n-contraction is taken before the test, on this rank's
+    columns: the test's two dots, the current rows against the candidate
+    (``W [s; y]^T``, ``[2m, 2]``) and the candidate's own block (``s.s``,
+    ``s.y``, ``y.y`` of the rows as stored).  On accept the Gram's new
+    rows and columns are the current rows' products with the entries of
+    the written slots replaced by the candidate's block; on reject the
+    Gram is kept (the unsharded commit recomputes the same entries).
+    """
+    size = mem.mem_size
+    gram_t = mem.gram.dtype
+    interleaved = isinstance(mem, BFGSMemoryInterleaved)
+    shift = interleaved and mem.shift
+    w = mem.sy if interleaved else torch.cat([mem.s, mem.y], dim=0)
+    st_t = w.dtype
+    row_s, row_y = s.to(st_t), y_cand.to(st_t)        # the rows as stored
+    rs, ry = row_s.to(gram_t), row_y.to(gram_t)
+    s_acc, y_acc = s.to(gram_t), y_cand.to(gram_t)
+    local = torch.stack([torch.dot(s_acc, y_acc), torch.dot(s_acc, s_acc),
+                         torch.dot(rs, rs), torch.dot(rs, ry),
+                         torch.dot(ry, ry)])
+    cols, local = _psum(comm, _gram_cols(w, row_s, row_y, gram_t)
+                        .to(gram_t), local, label="commit")
+    sy_, ss_, b_ss, b_sy, b_yy = local.unbind(0)
+    if min_curvature > 0:
+        accepted = sy_ / ss_ > min_curvature
+    else:
+        accepted = torch.ones((), dtype=torch.bool, device=s.device)
+    if enabled is not None:
+        accepted = accepted & enabled
+    block = torch.stack([torch.stack([b_ss, b_sy]),
+                         torch.stack([b_sy, b_yy])])        # [2, 2]
+
+    if shift:
+        new_sy = torch.where(accepted, torch.cat([torch.stack([row_s, row_y]),
+                                                  mem.sy[:-2]]), mem.sy)
+        p = torch.cat([block, cols[:-2]])                   # [2m, 2]
+        g_new = torch.zeros_like(mem.gram)
+        g_new[2:, 2:] = mem.gram[:-2, :-2]
+        g_new[:, 0:2] = p
+        g_new[0:2, :] = p.T
+        buffers = dict(sy=new_sy)
+        new_head = mem.head
+    else:
+        if interleaved:            # ring mode: rows 2 head, 2 head + 1
+            idx = 2 * mem.head + torch.arange(2, device=mem.head.device)
+            cur_s, cur_y = mem.sy.index_select(0, idx)
+        else:
+            head = mem.head.reshape(1)
+            idx = torch.cat([head, head + size])
+            cur_s = mem.s.index_select(0, head)[0]
+            cur_y = mem.y.index_select(0, head)[0]
+        new_rows = torch.stack([torch.where(accepted, row_s, cur_s),
+                                torch.where(accepted, row_y, cur_y)])
+        if interleaved:
+            mem.sy.index_copy_(0, idx, new_rows)
+        else:
+            mem.s.index_copy_(0, head, new_rows[:1])
+            mem.y.index_copy_(0, head, new_rows[1:])
+        p = cols.index_copy(0, idx, block)                  # [2m, 2]
+        g_new = mem.gram.clone()
+        g_new.index_copy_(1, idx, p)
+        g_new.index_copy_(0, idx, p.T.contiguous())
+        buffers = {}
+        new_head = torch.where(accepted, torch.remainder(mem.head + 1, size),
+                               mem.head)
+    gram = torch.where(accepted, g_new, mem.gram)
     new_count = torch.where(accepted, torch.clamp(mem.count + 1, max=size),
                             mem.count)
     cache = _small_cache(gram, new_head, new_count, size,
@@ -230,12 +332,15 @@ def _small_cache(gram: torch.Tensor, head: torch.Tensor, count: torch.Tensor,
     return out
 
 
-def fisher_y(fisher: FisherMemory, s: torch.Tensor) -> torch.Tensor:
+def fisher_y(fisher: FisherMemory, s: torch.Tensor,
+             comm=None) -> torch.Tensor:
     """Empirical-Fisher y vector: ``y = F^T (F s) / count``
     (``update_y_fisher``, ``src/stochqn.c:936-952``).  Rows at or past
-    ``count`` are masked out, so stale rows after a flush do not count."""
+    ``count`` are masked out, so stale rows after a flush do not count.
+    On a sharded param axis ``F s`` is summed over the ranks (one
+    all-reduce) and ``y`` is this rank's slice."""
     acc_t = torch.promote_types(s.dtype, torch.float32)
-    fs = _mem_mm(fisher.f, s, acc_t)                              # [k]
+    (fs,) = _psum(comm, _mem_mm(fisher.f, s, acc_t), label="fisher_y")
     k = torch.arange(fisher.f.shape[0], device=fs.device)
     fs = torch.where(k < fisher.count, fs, torch.zeros_like(fs))
     y = _mem_mm(fs, fisher.f, acc_t)                              # [n]

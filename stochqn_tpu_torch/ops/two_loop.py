@@ -30,6 +30,18 @@ loop of the reference C code.
 
 The kernels are in :mod:`stochqn_tpu_torch.ops.kernels.two_loop_kernel`;
 the selects around them are plain torch and stay on the device.
+
+``comm`` (a :class:`stochqn_tpu_torch.parallel.mesh.MeshComm`, or None)
+is the mesh of a sharded run.  Where its param axis has more than one
+rank, ``grad`` and the pair rows are this rank's slices of their last
+axis, and every n-contraction (``W g``, a Gram) is a local partial sum
+that one all-reduce completes; the expansions stay local.  The collapsed
+direction then takes the split route (:func:`collapsed_route`): the
+local ``W g``, one all-reduce of ``2m`` scalars, the small math and the
+local ``gamma g + W^T u``, in plain torch, since the one-pass direction
+kernels cannot sum across ranks between their projection and their
+expansion.  With no mesh, or one rank on the param axis, nothing here
+changes.
 """
 from __future__ import annotations
 
@@ -42,6 +54,21 @@ from stochqn_tpu_torch.ops.kernels.two_loop_kernel import (direction,
                                                           direction_streamed,
                                                           project,
                                                           project_adaqn)
+
+
+# Collapsed directions that took the split route (sharded param axis): the
+# route's counter, beside the kernels' launch counters.
+SPLIT_ROUTE = 0
+
+
+def _psum(comm, *parts, label="two_loop"):
+    """The parts summed over the mesh's param axis in one all-reduce
+    (identity with no mesh)."""
+    return parts if comm is None else comm.sum_param(parts, label)
+
+
+def _sharded(comm) -> bool:
+    return comm is not None and comm.n_param > 1
 
 
 def _mem_mm(a: torch.Tensor, b: torch.Tensor,
@@ -81,7 +108,7 @@ def two_loop_cached(grad: torch.Tensor, mem, *, h0: float = 0.0,
                     diag: Optional[torch.Tensor] = None,
                     use_pallas: Optional[bool] = None,
                     collapsed: bool = False,
-                    coupling: str = "matvec") -> torch.Tensor:
+                    coupling: str = "matvec", comm=None) -> torch.Tensor:
     """Approximate ``H^{-1} grad`` from the commit-time cache in ``mem``.
 
     Scalar H0 (``diag=None``), ``collapsed=True``: SQN's per-step
@@ -115,6 +142,12 @@ def two_loop_cached(grad: torch.Tensor, mem, *, h0: float = 0.0,
       its plain version for CPU ones), whatever ``coupling`` says.
 
     With no stored pairs the result is ``diag * grad``.
+
+    ``comm``: the mesh of a sharded run (module docstring).  Sharded, the
+    uncollapsed form sums ``W g`` in one all-reduce, the diagonal form
+    ``W g`` (matvec coupling: then ``Y u2`` too, a second, dependent one)
+    or ``W g``, ``(Y*D) g`` and ``(Y*D) Y^T`` together (gram coupling, or
+    the projection kernel on this rank's columns).
     """
     if coupling not in ("matvec", "gram"):
         raise ValueError(f"coupling must be 'matvec' or 'gram', "
@@ -133,9 +166,9 @@ def two_loop_cached(grad: torch.Tensor, mem, *, h0: float = 0.0,
                  if h0 > 0 else mem.gamma)
         gamma = torch.where(has_pairs, gamma, torch.ones_like(gamma))
         if collapsed:
-            d = _collapsed(grad, mem, gamma, interleaved)
+            d = _collapsed(grad, mem, gamma, interleaved, comm)
         else:
-            d = _uncollapsed(grad, mem, gamma, interleaved)
+            d = _uncollapsed(grad, mem, gamma, interleaved, comm)
         return torch.where(has_pairs, d, g_acc).to(dtype)
 
     s_mem, y_mem = mem.s, mem.y
@@ -152,7 +185,11 @@ def two_loop_cached(grad: torch.Tensor, mem, *, h0: float = 0.0,
             yd = y_mem.to(acc_t) * diag_acc[None, :]
             ydg_st = _mem_mm(yd, grad, acc_t)
             ydy_st = _mem_mm(yd, y_mem.T, acc_t)
-    wg = wg.to(acc_t)
+    if ydg_st is None:
+        (wg,) = _psum(comm, wg.to(acc_t))
+    else:
+        wg, ydg_st, ydy_st = _psum(comm, wg.to(acc_t), ydg_st.to(acc_t),
+                                   ydy_st.to(acc_t))
     alpha = mem.bwd_inv @ (mem.rho * wg[:m][perm])
 
     # u2 = D (g - Y^T alpha): the direction's diagonal term, and in the
@@ -161,7 +198,8 @@ def two_loop_cached(grad: torch.Tensor, mem, *, h0: float = 0.0,
     st_alpha_y = _mem_mm(_to_storage_order(alpha, perm), y_mem, acc_t)
     u2 = diag_acc * (g_acc - st_alpha_y)
     if ydg_st is None:
-        y_r0 = _mem_mm(y_mem, u2, acc_t)[perm]
+        (y_r0,) = _psum(comm, _mem_mm(y_mem, u2, acc_t))
+        y_r0 = y_r0[perm]
     else:
         ydg = ydg_st.to(acc_t)[perm]
         ydy = ydy_st.to(acc_t)[perm][:, perm]
@@ -175,10 +213,31 @@ def two_loop_cached(grad: torch.Tensor, mem, *, h0: float = 0.0,
     return torch.where(has_pairs, d, diag_acc * g_acc).to(dtype)
 
 
+def collapsed_route(first: torch.Tensor, grad: torch.Tensor,
+                    acc_t: torch.dtype, comm=None) -> str:
+    """The route the collapsed direction takes, decided before any launch:
+    ``"split"`` on a sharded param axis; else ``"direction"`` (float32
+    gradient and pairs within the card's cap) or ``"direction_streamed"``
+    (float32 gradient, bfloat16 pairs or over the cap); else ``"plain"``
+    (other dtypes)."""
+    if _sharded(comm):
+        return "split"
+    if grad.dtype == torch.float32 and acc_t == torch.float32 and (
+            first.dtype in (torch.float32, torch.bfloat16)):
+        m, n = first.shape
+        one_read = (first.dtype == torch.float32
+                    and direction_fits(m, n, grad.device))
+        return "direction" if one_read else "direction_streamed"
+    return "plain"
+
+
 def _collapsed(grad: torch.Tensor, mem, gamma: torch.Tensor,
-               interleaved: bool) -> torch.Tensor:
+               interleaved: bool, comm=None) -> torch.Tensor:
     """``gamma g + W^T ((c0 + gamma cg) (W g))`` in the memory's row
-    order, through a direction kernel for a float32 gradient."""
+    order, through a direction kernel for a float32 gradient, or on the
+    split route (``W g`` summed over the param axis between the
+    projection and the expansion)."""
+    global SPLIT_ROUTE
     acc_t = mem.bwd_inv.dtype
     c = mem.c0 + gamma * mem.cg
     if interleaved:
@@ -186,31 +245,34 @@ def _collapsed(grad: torch.Tensor, mem, gamma: torch.Tensor,
         first, second = mem.sy[:m], mem.sy[m:]    # W = [first; second]
     else:
         first, second = mem.s, mem.y
-    if grad.dtype == torch.float32 and acc_t == torch.float32 and (
-            first.dtype in (torch.float32, torch.bfloat16)):
-        m, n = first.shape
-        one_read = (first.dtype == torch.float32
-                    and direction_fits(m, n, grad.device))
-        kernel = direction if one_read else direction_streamed
+    route = collapsed_route(first, grad, acc_t, comm)
+    if route in ("direction", "direction_streamed"):
+        kernel = direction if route == "direction" else direction_streamed
         return kernel(first, second, grad, c, gamma)
     w = mem.sy if interleaved else torch.cat([first, second], dim=0)
-    u = c @ _mem_mm(w, grad, acc_t)
+    wg = _mem_mm(w, grad, acc_t)
+    if route == "split":
+        SPLIT_ROUTE += 1
+        (wg,) = _psum(comm, wg)
+    u = c @ wg
     return gamma * grad.to(acc_t) + _mem_mm(u, w, acc_t)
 
 
 def _uncollapsed(grad: torch.Tensor, mem, gamma: torch.Tensor,
-                 interleaved: bool) -> torch.Tensor:
-    """The scalar-H0 two-loop from the chronological cache: ``W g``, the
-    backward and forward m-sized products, the expansion."""
+                 interleaved: bool, comm=None) -> torch.Tensor:
+    """The scalar-H0 two-loop from the chronological cache: ``W g`` (one
+    all-reduce on a sharded param axis), the backward and forward m-sized
+    products, the expansion."""
     acc_t = mem.bwd_inv.dtype
     perm = mem.perm
     g_acc = grad.to(acc_t)
     if interleaved:
-        wg = _mem_mm(mem.sy, grad, acc_t)
+        (wg,) = _psum(comm, _mem_mm(mem.sy, grad, acc_t))
         sg, yg = wg[0::2][perm], wg[1::2][perm]
     else:
-        sg = _mem_mm(mem.s, grad, acc_t)[perm]
-        yg = _mem_mm(mem.y, grad, acc_t)[perm]
+        sg, yg = _psum(comm, _mem_mm(mem.s, grad, acc_t),
+                       _mem_mm(mem.y, grad, acc_t))
+        sg, yg = sg[perm], yg[perm]
     alpha = mem.bwd_inv @ (mem.rho * sg)
     y_r0 = gamma * (yg - mem.yy_c @ alpha)
     beta = mem.fwd_inv @ (mem.rho * y_r0 + mem.rl_c @ alpha)
@@ -234,7 +296,7 @@ def two_loop(grad: torch.Tensor, s_mem: torch.Tensor, y_mem: torch.Tensor,
              head, count, *, h0: float = 0.0,
              diag: Optional[torch.Tensor] = None,
              gram: Optional[torch.Tensor] = None,
-             use_pallas: bool = False) -> torch.Tensor:
+             use_pallas: bool = False, comm=None) -> torch.Tensor:
     """Approximate ``H^{-1} grad`` from the stored pairs, with no cache:
     the compact form (three products over ``W = [s_mem; y_mem]`` and two
     m x m triangular solves) that :func:`two_loop_cached` is audited
@@ -255,6 +317,12 @@ def two_loop(grad: torch.Tensor, s_mem: torch.Tensor, y_mem: torch.Tensor,
     ``diag``.  With a cached Gram and no ``diag`` there is nothing to
     fuse.  On CUDA the kernels launch or raise; on the CPU they run their
     plain versions.
+
+    ``comm``: the mesh of a sharded run (module docstring).  Sharded,
+    ``grad``, ``s_mem``, ``y_mem`` and ``diag`` are this rank's column
+    slices, a given ``gram`` is the full one, and ``W g``, ``W W^T`` and
+    the diagonal's products (kernel or plain, on this rank's columns) are
+    summed in one all-reduce.
     """
     m = s_mem.shape[0]
     dtype = grad.dtype
@@ -270,6 +338,7 @@ def two_loop(grad: torch.Tensor, s_mem: torch.Tensor, y_mem: torch.Tensor,
         return torch.cat([s_mem, y_mem], dim=0)                # [2m, n]
 
     ydg_st = ydy_st = None
+    gram_given = gram is not None       # replicated; a computed one is local
     kernels = (use_pallas and dtype == torch.float32
                and s_mem.dtype == torch.float32)
     if kernels and diag is not None:
@@ -281,6 +350,19 @@ def two_loop(grad: torch.Tensor, s_mem: torch.Tensor, y_mem: torch.Tensor,
     if gram is None:
         w_all = w()
         gram = _mem_mm(w_all, w_all.T, acc_t)
+    if diag is not None and ydg_st is None:
+        yd = y_mem.to(acc_t) * diag.to(acc_t)[None, :]
+        ydg_st = _mem_mm(yd, grad, acc_t)
+        ydy_st = _mem_mm(yd, y_mem.T, acc_t)
+    if _sharded(comm):
+        parts = [wg.to(acc_t)] + ([] if gram_given else [gram.to(acc_t)])
+        if ydg_st is not None:
+            parts += [ydg_st.to(acc_t), ydy_st.to(acc_t)]
+        parts = list(_psum(comm, *parts))
+        wg = parts.pop(0)
+        gram = gram if gram_given else parts.pop(0)
+        if ydg_st is not None:
+            ydg_st, ydy_st = parts
     wg, gram = wg.to(acc_t), gram.to(acc_t)
 
     # chronologically ordered small quantities
@@ -313,10 +395,6 @@ def two_loop(grad: torch.Tensor, s_mem: torch.Tensor, y_mem: torch.Tensor,
         y_r0 = gamma * (yg - yy @ alpha)
     else:
         h0_vec = diag.to(acc_t)
-        if ydg_st is None:
-            yd = y_mem.to(acc_t) * h0_vec[None, :]
-            ydg_st = _mem_mm(yd, grad, acc_t)
-            ydy_st = _mem_mm(yd, y_mem.T, acc_t)
         y_r0 = (ydg_st.to(acc_t)[perm]
                 - ydy_st.to(acc_t)[perm][:, perm] @ alpha)
 

@@ -156,10 +156,12 @@ class PytreeTrainer:
         (call ``torch.func.functional_call(module, params, args)`` inside
         ``loss_fn``).
       val_data: optional batch on the state's device for adaQN's guard.
+      mesh, reduction: a sharded run, as :class:`FusedTrainer` takes them.
     """
 
     def __init__(self, optimizer: str, cfg: Any, loss_fn: Callable,
-                 params_template: Any, val_data: Any = None):
+                 params_template: Any, val_data: Any = None, mesh=None,
+                 reduction: str = "sum"):
         if isinstance(params_template, torch.nn.Module):
             params_template = dict(params_template.named_parameters())
         self._template = params_template
@@ -170,7 +172,8 @@ class PytreeTrainer:
             return loss_fn(self.unravel(xflat), batch)
 
         self.trainer = FusedTrainer(optimizer, cfg, torch.func.grad(flat_loss),
-                                    obj_fn=flat_loss, val_data=val_data)
+                                    obj_fn=flat_loss, val_data=val_data,
+                                    mesh=mesh, reduction=reduction)
 
     def unravel(self, xflat: torch.Tensor):
         """Views of ``xflat`` in the template's structure."""

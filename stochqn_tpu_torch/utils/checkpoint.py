@@ -11,9 +11,13 @@ carries them).  So a float32 or float64 state written by either package
 loads in the other.  Fields that are no tensor (a memory's commit mode
 ``shift``) are not stored: they come from the template.
 
-The JAX package's orbax pair (sharded, multi-host states) waits for the
-multi-GPU slice (ROADMAP A.15), where it becomes
-``torch.distributed.checkpoint``.
+:func:`save_sharded` / :func:`load_sharded` are the counterparts of the
+JAX package's orbax pair (``save_orbax`` / ``load_orbax``) for a state
+sharded over a mesh (:mod:`stochqn_tpu_torch.parallel`): every rank
+writes its part with ``torch.distributed.checkpoint``, each
+parameter-axis field as a ``DTensor`` sharded on the ``param`` dim and
+everything else replicated, keyed by the same field paths as the
+``.npz`` files.
 """
 from __future__ import annotations
 
@@ -69,6 +73,47 @@ def save_state(path: str, state) -> None:
     per tensor)."""
     np.savez(path, **{key: _array(key.rsplit("/", 1)[-1], t)
                       for key, t in _leaves_with_paths(state)})
+
+
+def _as_dtensors(state, mesh) -> dict:
+    """``{path: DTensor}`` over this rank's tensors: parameter-axis fields
+    sharded along their last axis on the ``param`` dim, the rest (and
+    everything on the ``data`` dim) replicated."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from stochqn_tpu_torch.parallel.mesh import _PARAM_AXIS_FIELDS
+
+    out = {}
+    for key, t in _leaves_with_paths(state):
+        sharded = key.rsplit("/", 1)[-1] in _PARAM_AXIS_FIELDS and t.ndim >= 1
+        param = Shard(t.ndim - 1) if sharded else Replicate()
+        out[key] = DTensor.from_local(t, mesh, [Replicate(), param],
+                                      run_check=False)
+    return out
+
+
+def save_sharded(path: str, state, mesh) -> None:
+    """Write a state sharded over ``mesh`` (each rank's part, as
+    :class:`~stochqn_tpu_torch.fused.FusedTrainer` holds it) into the
+    checkpoint directory ``path``; a collective: every rank calls it.  The
+    counterpart of the JAX package's ``save_orbax``.  A checkpoint
+    consolidates to one ``torch.save`` file of whole tensors with
+    ``torch.distributed.checkpoint.format_utils.dcp_to_torch_save``."""
+    import torch.distributed.checkpoint as dcp
+    dcp.save(_as_dtensors(state, mesh), checkpoint_id=path)
+
+
+def load_sharded(path: str, template, mesh):
+    """Load a checkpoint of :func:`save_sharded` into the structure of
+    ``template``, a state sharded over ``mesh`` the same way (a fresh
+    ``FusedTrainer(mesh=...).init``): every rank reads its part; a
+    collective.  The counterpart of the JAX package's ``load_orbax``."""
+    import torch.distributed.checkpoint as dcp
+    tensors = _as_dtensors(_replace(template, {
+        key: t.clone() for key, t in _leaves_with_paths(template)}), mesh)
+    dcp.load(tensors, checkpoint_id=path)
+    return _replace(template, {key: t.to_local()
+                               for key, t in tensors.items()})
 
 
 def _leaf(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:

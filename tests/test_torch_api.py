@@ -129,7 +129,7 @@ def test_minimize_errors_and_device(rng):
     n = 4
     tloss, _ = _quad(rng, n)
     data = torch.zeros(40, n, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="A.15"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         minimize(tloss, torch.ones(n, dtype=torch.float64), data,
                  batch_size=10, mesh=object())
     with pytest.raises(ValueError, match="unknown optimizer"):

@@ -2,7 +2,7 @@
 engine and against the JAX package's fused fit.
 
 Counterpart of ``test_guided_fused.py`` less the mesh tests (a sharded
-fit is ROADMAP A.15; the port raises on ``mesh=``).  The callables are
+fit runs in ``test_torch_parallel.py``'s cluster).  The callables are
 least squares written with the operators numpy arrays, JAX arrays and
 tensors share, so one set of functions serves the protocol engine (numpy)
 and both fused engines (JAX arrays, tensors).
@@ -255,8 +255,10 @@ def test_engine_mesh_and_backend_args(rng):
                     device="cpu")
     with pytest.raises(ValueError, match="engine"):
         opt.fit(X, y, engine="warp")
-    with pytest.raises(NotImplementedError, match="A.15"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         opt.fit(X, y, engine="fused", mesh=object())
+    with pytest.raises(ValueError, match="requires engine='fused'"):
+        opt.fit(X, y, engine="protocol", mesh=object())
     with pytest.raises(NotImplementedError, match="A.16"):
         tg.oLBFGS(np.zeros(3), grad, backend="native", device="cpu")
 

@@ -243,8 +243,10 @@ def test_constructor_checks():
         _port(optimizer="Adam")
     with pytest.raises(ValueError, match="engine"):
         _port(engine="warp")
-    with pytest.raises(NotImplementedError, match="A.15"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         _port(engine="fused", mesh=object())
+    with pytest.raises(ValueError, match="requires engine='fused'"):
+        _port(engine="protocol", mesh=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             StochasticLogisticRegression()

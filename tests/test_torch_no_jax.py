@@ -19,6 +19,8 @@ import stochqn_tpu_torch.guided, stochqn_tpu_torch.models.logistic
 import stochqn_tpu_torch.models.sparse, stochqn_tpu_torch.models.mlp
 import stochqn_tpu_torch.api, stochqn_tpu_torch.optim_adapter
 import stochqn_tpu_torch.utils.checkpoint
+import stochqn_tpu_torch.parallel
+from stochqn_tpu_torch.parallel import comm, distributed, evaluate, mesh
 for name in ("oLBFGS_free", "SQN_free", "adaQN_free", "AdvanceResult",
              "OLBFGSConfig", "OLBFGSState", "BFGSMemoryInterleaved", "two_loop",
              "two_loop_sequential", "direction", "project"):
@@ -34,8 +36,32 @@ assert metrics.summarize_infos([200]) == {"no_problems_encountered": 1}
 assert len(list(data.rounds_of([[0.0]] * 4, 2))) == 2
 assert callable(data.stream_rounds) and callable(fused.shuffle_batched)
 for name in ("SQN", "StochasticLogisticRegression", "minimize", "OLBFGS",
-             "PytreeTrainer", "save_state", "load_state"):
+             "PytreeTrainer", "save_state", "load_state", "save_sharded",
+             "load_sharded"):
     assert hasattr(stochqn_tpu_torch, name), name
+for name in ("make_mesh", "shard_state", "shard_batches", "gather_state",
+             "data_parallel_grad", "data_parallel_value", "data_parallel_hvp",
+             "record_collectives", "collective_ops", "collective_bytes",
+             "DATA_AXIS", "PARAM_AXIS"):
+    assert hasattr(stochqn_tpu_torch.parallel, name), name
+for name in ("initialize", "global_mesh", "process_local_batch_slice",
+             "global_batches", "shard_state_global", "replicate_global"):
+    assert hasattr(distributed, name), name
+# a one-process group over gloo: a sharded fused epoch and its recorder
+import torch, tempfile, os
+tmp = tempfile.mkdtemp()
+distributed.initialize(world_size=1)          # one process: a no-op
+assert not torch.distributed.is_initialized()
+torch.distributed.init_process_group(
+    "gloo", init_method="file://" + os.path.join(tmp, "rdv"), world_size=1,
+    rank=0)
+m = mesh.make_mesh(device_type="cpu")
+tr = fused.FusedTrainer("SQN", stochqn_tpu_torch.SQNConfig.create(
+    mem_size=2, bfgs_upd_freq=2), lambda x, b: x - b.mean(0), mesh=m)
+with comm.record_collectives() as log:
+    st, _ = tr.epoch(tr.init(torch.zeros(4)), torch.ones(2, 2, 4), 0.1)
+assert [op.label for op in log] == ["grad", "grad", "hvp"], log
+torch.distributed.destroy_process_group()
 # a protocol fit with a validation split: the split is the port's own
 rng = np.random.default_rng(0)
 X = rng.standard_normal((60, 3))
