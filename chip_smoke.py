@@ -164,6 +164,27 @@ Phases (each failure raises and exits non-zero; nothing is caught):
     (g) iters/s of (b) and (d) and of one rank in this process before and
     after the clusters, and the host share of an epoch spent in
     collectives, each labelled as gloo on one card.
+20. A bfloat16 iterate at the same shape: fused SQN from a bfloat16
+    ``x0`` for 2 epochs on bfloat16 data and on float32 data, under sync
+    debug mode "error", and ``SQN_free(dtype=torch.bfloat16)`` for one
+    epoch of phase 11's loop.  Checks: bfloat16 ``x`` and pairs with a
+    float32 Gram on the card, one ``direction_streamed`` launch per base
+    step (on the gradient's upcast) and no plain version, the JAX
+    package's codes and live pairs, the loss within twice the JAX
+    bfloat16 run's distance to its float32 run (``rule_gate``); then the
+    kernel on a bfloat16 gradient against its plain version and against
+    the float32-gradient call (the same bits), and both timed in turns,
+    warm and with L2 flushed.
+21. The native C++ tier (``native_backend``, built with g++ from
+    ``native/src``; a failed build fails the run): ``oLBFGS_free``,
+    ``SQN_free`` (Hessian-vector and gradient-difference pairs) and
+    ``adaQN_free`` with ``backend="native"`` in float64 in lockstep with
+    the card's ``backend="torch"`` float64 on a small quadratic (the same
+    tasks and infos, ``x`` within ``NATIVE_RTOL`` / ``NATIVE_ATOL``); then
+    ``SQN_free(backend="native", use_float=True)`` for one epoch at
+    BibTeX shape with gradients computed on the card (phase 11's codes and
+    loss gate), and the host wall per ``run_optimizer`` call of the native
+    core and the card's backend, in turns.
 
 The last two lines are the kernels' JSON record and the contract line
 ``{"ok": true, "device": {...}}``; the card's ``nvidia-smi`` line is
@@ -434,6 +455,30 @@ JAX_BF16_LOSS = {"sqn_block": 451_610.53125,
 BF16_RTOL = {"sqn_block": LOSS_RTOL, "sqn_interleaved": LOSS_RTOL,
              "olbfgs_interleaved": 0.14, "adaqn_fisher": FINAL_RTOL}
 JAX_OLBFGS_BF16_F64_LOSS = 109_025.26315829599
+# Phase 20, a bfloat16 iterate, on the same data: the JAX package on the
+# CPU (tools/jax_references.py --bf16-iterate prints every number below):
+# - FusedTrainer("SQN", SQNConfig.create(mem_size=10, bfgs_upd_freq=20))
+#   from x0 in bfloat16, jax.jit(trainer.epoch) twice at eta 1e-2 (a
+#   Python float), aligned=True: 605,439.1875 on bfloat16 data and on
+#   float32 data alike (the losses cast the data to the parameters'
+#   dtype inside each product), all 240 codes 200, 10 live pairs, x and
+#   the pair rows bfloat16, the Gram float32.  The float32 run ends at
+#   JAX_LOSS_2_EPOCHS: a bfloat16 x rounds most of a 1e-2 step away, so
+#   the bfloat16 run is 34% above it;
+# - SQN_free(mem_size=10, bfgs_upd_freq=20, dtype=jnp.bfloat16) for one
+#   epoch in phase 11's request loop, every point handed to the jitted
+#   losses in bfloat16: 620,068.375, 121 calc_grad and 5 calc_hess_vec
+#   requests, every iteration_info no_problems_encountered, 5 live pairs
+#   (float32: JAX_FREE_SQN_LOSS_1_EPOCH).
+# The two packages round elementwise ops alike but sum products in their
+# own orders, so the same bits are not expected.  The rule
+# (tests/test_torch_bf16_iterate.py): the codes exact, and the loss within
+# twice the JAX bfloat16 run's distance to the JAX float32 run.
+JAX_BF16_ITERATE_LOSS = 605_439.1875
+JAX_FREE_SQN_BF16_LOSS_1_EPOCH = 620_068.375
+# Phase 21, the native C++ tier in float64 against the card's torch
+# backend in lockstep: tests/test_native.py's tolerance.
+NATIVE_RTOL, NATIVE_ATOL = 1e-8, 1e-10
 # oLBFGS paired gradients against the sequential layout: the same steps,
 # held in float64 to tests/test_fused.py:418's tolerances.
 PAIRED_RTOL, PAIRED_ATOL = 1e-6, 1e-9
@@ -619,9 +664,10 @@ def bound(nbytes, flops):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def direction_bound(m, n, storage_bytes=4):
+def direction_bound(m, n, storage_bytes=4, grad_bytes=4):
     """d = gamma g + W^T (C (W g)): W, g, C and gamma read, d written."""
-    nbytes = 2 * m * n * storage_bytes + 4 * (n + 4 * m * m + 1) + 4 * n
+    nbytes = (2 * m * n * storage_bytes + grad_bytes * n
+              + 4 * (4 * m * m + 1) + 4 * n)
     return bound(nbytes, 8 * m * n + 2 * n + 8 * m * m)
 
 
@@ -1531,11 +1577,16 @@ class FreeLoop:
     gradients, Hessian-vector products and function values are computed
     there and handed over as device tensors."""
 
-    def __init__(self, opt, X, Y, x0, step, audit=None, resume=None):
+    def __init__(self, opt, X, Y, x0, step, audit=None, resume=None,
+                 point_dtype=None):
         """``resume``: ``(req, b)``, a pending request and the minibatch
         count of a loop that was stopped, to continue it on ``opt`` (whose
-        state is that loop's) from ``x0``, with no priming call."""
+        state is that loop's) from ``x0``, with no priming call.
+        ``point_dtype``: the dtype the points go to the card in (the
+        data's by default; a bfloat16 optimizer's points in bfloat16, as
+        the JAX package hands its bfloat16 arrays to the losses)."""
         self.opt, self.X, self.Y, self.step = opt, X, Y, step
+        self.point_dtype = X.dtype if point_dtype is None else point_dtype
         self.x = np.array(x0.cpu().numpy() if isinstance(x0, torch.Tensor)
                           else x0, copy=True)
         self.audit = audit
@@ -1558,7 +1609,7 @@ class FreeLoop:
         return req
 
     def _at(self, a):
-        return torch.from_numpy(a).to(self.X.device, self.X.dtype)
+        return torch.from_numpy(a).to(self.X.device, self.point_dtype)
 
     def answer(self):
         """Answer the pending request and run the optimizer to its next."""
@@ -3492,6 +3543,235 @@ def sharded_phase(dev, x_phase4):
     return out
 
 
+def rule_gate(what, loss, want, f32):
+    """The bfloat16 rule: ``loss`` within twice the JAX bfloat16 run's
+    distance (``want``) to the JAX float32 run (``f32``)."""
+    gate = 2 * abs(want - f32)
+    check(abs(loss - want) <= gate,
+          f"{what}: loss {loss:.4f} vs the JAX package's bfloat16 run "
+          f"{want} (CPU): |diff| {abs(loss - want):.4f} <= {gate:.4f}, "
+          f"twice its distance to the float32 run {f32} (rel diff to the "
+          f"JAX bfloat16 run {abs(loss - want) / want:.3e})")
+
+
+def bf16_iterate_phase(dev):
+    phase("20. a bfloat16 iterate at BibTeX shape: fused SQN on bfloat16 "
+          "and float32 data, SQN_free(dtype=torch.bfloat16)")
+    X, Y, x0 = bench_data(dev)
+    Xf, Yf = X.reshape(-1, N_FEATURES), Y.reshape(-1, N_CLASSES)
+    bf16 = torch.bfloat16
+    steps = 2 * NUM_BATCHES
+
+    def full_loss(x):
+        x = torch.as_tensor(x, device=dev).float()
+        return float(losses.multinomial_logistic_loss(x, Xf, Yf, None, REG))
+
+    plain_calls, restore_plain = spy_plain()
+    launches = {}
+    for name, data in (("bf16_data", (X.to(bf16), Y.to(bf16))),
+                       ("f32_data", (X, Y))):
+        trainer = sqn_trainer()
+        state = trainer.init(x0.to(bf16))
+        torch.cuda.synchronize()
+        reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        state, infos = trainer.epochs(state, data, STEP, nepochs=2,
+                                      aligned=True)
+        torch.cuda.set_sync_debug_mode(0)
+        counts = read_launches()
+        launches[name] = counts.pop("direction_streamed")
+        check(state.x.dtype == state.x_sum.dtype == state.mem.s.dtype == bf16
+              and state.mem.gram.dtype == torch.float32
+              and state.x.device.type == "cuda"
+              and launches[name] == steps and not any(counts.values())
+              and not plain_calls,
+              f"fused SQN, bfloat16 x0, {name}: x, x_sum and the pairs "
+              "bfloat16 and the Gram float32 on the card, no host sync, "
+              f"direction_streamed launched {launches[name]} times for "
+              f"{steps} base steps, the others {counts}, no plain version "
+              f"({len(plain_calls)} calls)")
+        check(set(infos.flatten().tolist()) == {200}
+              and int(state.mem.count) == MEM_SIZE,
+              f"fused SQN bfloat16 {name}: all codes 200, {MEM_SIZE} live "
+              "pairs, as in the JAX package's run")
+        rule_gate(f"fused SQN bfloat16 {name}, 2 epochs",
+                  full_loss(state.x), JAX_BF16_ITERATE_LOSS,
+                  JAX_LOSS_2_EPOCHS)
+
+    opt = SQN_free(mem_size=MEM_SIZE, bfgs_upd_freq=UPD_FREQ, dtype=bf16)
+    reset_launches()
+    loop = FreeLoop(opt, X, Y, x0, STEP, point_dtype=bf16)
+    loop.run(NUM_BATCHES)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    launches["free_sqn"] = counts.pop("direction_streamed")
+    check(opt.state.x.dtype == bf16 and launches["free_sqn"] == NUM_BATCHES
+          and not any(counts.values()) and not plain_calls,
+          f"SQN_free(dtype=bfloat16): direction_streamed launched "
+          f"{launches['free_sqn']} times for {NUM_BATCHES} steps, the others "
+          f"{counts}, no plain version ({len(plain_calls)} calls)")
+    check(loop.tasks == expected_sqn_tasks(NUM_BATCHES)
+          and set(loop.infos) == {"no_problems_encountered"}
+          and int(opt.state.mem.count) == 5
+          and loop.x.dtype == np.float32,
+          "SQN_free(dtype=bfloat16): the request order and every "
+          "iteration_info of the JAX package's run, 5 live pairs, the "
+          "iterate written back into a float32 x")
+    rule_gate("SQN_free bfloat16, 1 epoch", full_loss(loop.x),
+              JAX_FREE_SQN_BF16_LOSS_1_EPOCH, JAX_FREE_SQN_LOSS_1_EPOCH)
+    restore_plain()
+
+    # the kernel on the bfloat16-gradient input at the path's shape
+    # (bfloat16 pairs of a real commit cache), against its plain version
+    # on the same upcast inputs; then timed against the float32-gradient
+    # call on the same pairs
+    gen = torch.Generator(device=dev).manual_seed(20)
+    mem = committed_memory(N_FLAGSHIP, bf16, dev, gen)
+    g16 = torch.randn(N_FLAGSHIP, device=dev, generator=gen).to(bf16)
+    g32 = g16.float()
+    c = mem.c0 + mem.gamma * mem.cg
+    args16 = (mem.s, mem.y, g16, c, mem.gamma)
+    args32 = (mem.s, mem.y, g32, c, mem.gamma)
+    got = tlk.direction_streamed(*args16)
+    want = tlk.direction_streamed_ref(*args32)
+    same = tlk.direction_streamed(*args32)
+    torch.cuda.synchronize()
+    max_abs = float((got - want).abs().max())
+    check(bool(torch.allclose(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)),
+          f"direction_streamed on a bfloat16 gradient (n={N_FLAGSHIP}, "
+          f"m={MEM_SIZE}, bfloat16 pairs): max_abs_err={max_abs:.3e} within "
+          f"rtol={KERNEL_RTOL} atol={KERNEL_ATOL} of the plain version")
+    check(bool(torch.equal(got, same)),
+          "the bfloat16 gradient gives the float32-gradient call's bits "
+          "(the upcast is exact)")
+    timing = time_kernel(f"n={N_FLAGSHIP} bfloat16 pairs, bfloat16 gradient",
+                         lambda: tlk.direction_streamed(*args16),
+                         lambda: tlk.direction_streamed_ref(*args32))
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    k32 = [device_ms(lambda: tlk.direction_streamed(*args32), 50),
+           device_ms(lambda: tlk.direction_streamed(*args32), 30, flush)]
+    k16 = [device_ms(lambda: tlk.direction_streamed(*args16), 50),
+           device_ms(lambda: tlk.direction_streamed(*args16), 30, flush)]
+    timing.update(f32_grad_ms=k32[0], f32_grad_cold_ms=k32[1],
+                  bf16_grad_turn_ms=k16[0], bf16_grad_turn_cold_ms=k16[1])
+    print(f"  direction_streamed, bfloat16 pairs, device: bfloat16 gradient "
+          f"(upcast included) {k16[0]:.4f} ms warm, {k16[1]:.4f} ms with "
+          f"L2 flushed; float32 gradient {k32[0]:.4f} ms warm, "
+          f"{k32[1]:.4f} ms with L2 flushed (in turns)", flush=True)
+    return dict(launches=launches, max_abs=max_abs, timing=timing)
+
+
+class Quadratic:
+    """f_b(x) = 0.5 (x - c_b)^T A (x - c_b), tests/test_native.py's
+    problem, evaluated in numpy for every backend."""
+
+    def __init__(self, n, seed=1234):
+        rng = np.random.default_rng(seed)
+        q = np.linalg.qr(rng.standard_normal((n, n)))[0]
+        self.a = q @ np.diag(rng.uniform(0.5, 4.0, n)) @ q.T
+        self.centers = rng.standard_normal((16, n))
+        self.x0 = rng.standard_normal(n)
+
+    def answer(self, opt, req, b):
+        task, at = req["task"], req["requested_on"]
+        cmean = self.centers.mean(axis=0)
+        if task in ("calc_grad", "calc_grad_same_batch"):
+            opt.update_gradient(self.a @ (at - self.centers[b % 16]))
+        elif task == "calc_grad_big_batch":
+            opt.update_gradient(self.a @ (at - cmean))
+        elif task == "calc_hess_vec":
+            opt.update_hess_vec(self.a @ at[1])
+        else:
+            d = at - cmean
+            opt.update_function(0.5 * d @ self.a @ d)
+
+
+def native_lockstep(name, make, prob, nsteps=150, step=0.05):
+    """``make(**backend)`` in float64 with ``backend="native"`` and with
+    the card's ``backend="torch"``, in lockstep."""
+    opts = (make(backend="native"), make())
+    check(opts[0].device.type == "cpu" and opts[1].device.type == "cuda",
+          f"{name}: the native core on the CPU, the torch backend on the "
+          "card, both float64")
+    xs = [prob.x0.copy() for _ in opts]
+    reqs = [o.run_optimizer(x, step) for o, x in zip(opts, xs)]
+    b, worst, seen = 0, 0.0, set()
+    for it in range(nsteps):
+        rn, rt = reqs
+        if (rn["task"], rn["info"]) != (rt["task"], rt["info"]) or not (
+                np.allclose(xs[0], xs[1], rtol=NATIVE_RTOL,
+                            atol=NATIVE_ATOL)):
+            check(False, f"{name}: native and card part at call {it}: "
+                  f"{rn['task']}/{rn['info']} vs {rt['task']}/{rt['info']}, "
+                  f"max |dx| {np.max(np.abs(xs[0] - xs[1])):.3e}")
+        worst = max(worst, float(np.max(np.abs(xs[0] - xs[1]))))
+        seen.add(rn["task"])
+        for o, r in zip(opts, reqs):
+            prob.answer(o, r, b)
+        if rn["task"] == "calc_grad":
+            b += 1
+        reqs = [o.run_optimizer(x, step) for o, x in zip(opts, xs)]
+    check(True, f"{name}: {nsteps} calls in lockstep, the same tasks "
+          f"({sorted(seen)}) and infos, x within rtol={NATIVE_RTOL} "
+          f"atol={NATIVE_ATOL} (max |dx| {worst:.3e})")
+
+
+def native_phase(dev):
+    phase("21. the native C++ tier: the three free-mode classes against the "
+          "card's torch backend, SQN_free(backend='native') at BibTeX shape")
+    from stochqn_tpu_torch import native_backend
+    t0 = time.perf_counter()
+    path = native_backend.library_path()
+    print(f"  native library {os.path.relpath(path)} ready in "
+          f"{time.perf_counter() - t0:.2f} s (g++ "
+          f"{' '.join(native_backend.NUMERIC_FLAGS)})", flush=True)
+    prob = Quadratic(10)
+    native_lockstep("oLBFGS_free", lambda **kw: oLBFGS_free(
+        mem_size=5, **kw), prob)
+    native_lockstep("SQN_free", lambda **kw: SQN_free(
+        mem_size=4, bfgs_upd_freq=5, **kw), prob)
+    native_lockstep("SQN_free use_grad_diff", lambda **kw: SQN_free(
+        mem_size=4, bfgs_upd_freq=5, use_grad_diff=True, **kw), prob)
+    native_lockstep("adaQN_free", lambda **kw: adaQN_free(
+        mem_size=4, fisher_size=12, bfgs_upd_freq=5, max_incr=1.01, **kw),
+        prob)
+
+    # float32 at BibTeX shape: the native core steps on the host,
+    # gradients and Hessian-vector products are computed on the card from
+    # the numpy points (phase 11's loop), in turns with the card's backend
+    X, Y, x0 = bench_data(dev)
+    Xf, Yf = X.reshape(-1, N_FEATURES), Y.reshape(-1, N_CLASSES)
+    walls = {"native": [], "card": []}
+    for turn in ("native", "card", "card", "native"):
+        opt = SQN_free(mem_size=MEM_SIZE, bfgs_upd_freq=UPD_FREQ,
+                       use_float=True,
+                       backend="native" if turn == "native" else "torch")
+        reset_launches()
+        loop = FreeLoop(opt, X, Y, x0, STEP)
+        loop.run(NUM_BATCHES)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        walls[turn].append(statistics.median(loop.call_ms["calc_grad"]))
+        if turn == "native" and len(walls["native"]) == 1:
+            check(not any(counts.values()),
+                  f"SQN_free(backend='native'): no kernel launched {counts}")
+            check(loop.tasks == expected_sqn_tasks(NUM_BATCHES)
+                  and set(loop.infos) == {"no_problems_encountered"},
+                  f"SQN_free(backend='native'), 1 epoch: phase 11's request "
+                  f"order ({NUM_BATCHES + 1} calc_grad, 5 calc_hess_vec) and "
+                  "every iteration_info")
+            loss = float(losses.multinomial_logistic_loss(
+                torch.from_numpy(loop.x).to(dev), Xf, Yf, None, REG))
+            loss_gate("SQN_free(backend='native'), 1 epoch", loss,
+                      JAX_FREE_SQN_LOSS_1_EPOCH, LOSS_RTOL)
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    print(f"  run_optimizer answering calc_grad at n={N_FLAGSHIP}, host wall "
+          f"median per call, in turns (native, card, card, native): native "
+          f"{walls['native'][0]:.4f} / {walls['native'][1]:.4f} ms, card "
+          f"{walls['card'][0]:.4f} / {walls['card'][1]:.4f} ms", flush=True)
+    return dict(run_optimizer_ms=med, turns=walls)
+
+
 def check_no_spills(report):
     """ptxas's report of the build (``-Xptxas -v``): every kernel of the
     four sources is in it, and none spills a byte."""
@@ -3577,6 +3857,8 @@ def main():
     front, _ = front_end_phase(dev)
     front_ips = front_end_times(dev)
     sharded = sharded_phase(dev, x_phase4)
+    bf16_iterate = bf16_iterate_phase(dev)
+    native = native_phase(dev)
 
     # launches: the counts of the paths driven above (fused SQN, fused adaQN,
     # free-mode SQN at m = 10 and m = 20, free-mode adaQN, fused SQN
@@ -3601,7 +3883,12 @@ def main():
                 ilv_launches.get("direction_streamed", 0),
             "fused_sqn_interleaved_m20": ilv_m20_launches,
             "fused_sqn_bf16": bf16["launches"]["block"],
-            "fused_sqn_bf16_interleaved": bf16["launches"]["interleaved"]},
+            "fused_sqn_bf16_interleaved": bf16["launches"]["interleaved"],
+            "fused_sqn_bf16_iterate_bf16_data":
+                bf16_iterate["launches"]["bf16_data"],
+            "fused_sqn_bf16_iterate_f32_data":
+                bf16_iterate["launches"]["f32_data"],
+            "free_sqn_bf16_iterate": bf16_iterate["launches"]["free_sqn"]},
         "project": {"free_sqn_oracle_audits": free_launches["project"],
                     "free_sqn_m20_oracle_audits":
                         free_launches["project_m20"]},
@@ -3629,6 +3916,12 @@ def main():
                            ("fused_sqn_bf16_interleaved",
                             bf16["launches"]["interleaved"]),
                            ("fused_adaqn_generic", generic["adaqn_launches"]),
+                           ("fused_sqn_bf16_iterate_bf16_data",
+                            bf16_iterate["launches"]["bf16_data"]),
+                           ("fused_sqn_bf16_iterate_f32_data",
+                            bf16_iterate["launches"]["f32_data"]),
+                           ("free_sqn_bf16_iterate",
+                            bf16_iterate["launches"]["free_sqn"]),
                            ("fused_adaqn_fisher_bf16",
                             bf16["adaqn_launches"])):
         check(launches > 0, f"{name} launched its kernel: {launches}")
@@ -3642,6 +3935,10 @@ def main():
           f"sequential oLBFGS: {drivers['paired_iters_per_s']} iters/s, idle "
           f"{drivers['paired_idle_share']}; stream_rounds "
           f"{drivers['stream_iters_per_s']:.1f} iters/s", flush=True)
+    print(f"  native tier: run_optimizer at n={N_FLAGSHIP}, host wall "
+          f"median {native['run_optimizer_ms']['native']:.4f} ms (C++ core) "
+          f"vs {native['run_optimizer_ms']['card']:.4f} ms (the card's "
+          "backend)", flush=True)
     print(f"  oLBFGS (no kernel): fused iters/s block "
           f"{olbfgs['iters_per_s']['block']:.1f}, interleaved "
           f"{olbfgs['iters_per_s']['interleaved']:.1f}; oLBFGS_free "
@@ -3676,9 +3973,14 @@ def main():
                       sharded["param_sharded_launches"],
                       "times": sharded["times"]}
     print(json.dumps({"kernels": [
-        entry("direction_streamed", 309, max_abs, f32,
+        entry("direction_streamed", 309,
+              max(max_abs, bf16_iterate["max_abs"]), f32,
               direction_bound(MEM_SIZE, N_FLAGSHIP), bf16=timing["bfloat16"],
               bf16_bound=direction_bound(MEM_SIZE, N_FLAGSHIP, 2),
+              bf16_grad=bf16_iterate["timing"],
+              bf16_grad_bound=direction_bound(MEM_SIZE, N_FLAGSHIP, 2,
+                                              grad_bytes=2),
+              native_run_optimizer_ms=native["run_optimizer_ms"],
               m20=timing["m20"], iters_per_s=streamed_ips,
               interleaved_m20_iters_per_s=ilv_m20_ips,
               bf16_iters_per_s=bf16["iters_per_s"]["bf16 block"]),

@@ -36,8 +36,13 @@ streaming, metrics); and the front ends: the guided ``oLBFGS`` / ``SQN`` /
 ``parallel`` (a ``(data, param)`` ``DeviceMesh``, data-parallel and
 parameter-sharded fused runs of the three optimizers, ``mesh=`` in the
 front ends, the collective recorder) with the sharded checkpoints
-``save_sharded`` / ``load_sharded``.  ROADMAP.md lists what comes next.
+``save_sharded`` / ``load_sharded``; and the rest of the JAX package's
+surface: ``backend="native"`` in free mode (the C++ core of ``native/``
+through ``native_backend``), a bfloat16 iterate in every optimizer
+(SQN's collapsed direction on ``direction_streamed``), and
+``FisherMemory.append_block``.  ROADMAP.md lists what comes next.
 """
+from stochqn_tpu_torch._version import __version__
 from stochqn_tpu_torch.api import MinimizeResult, minimize
 from stochqn_tpu_torch.convert import (
     adaqn_state_from_numpy, adaqn_state_to_numpy,
@@ -70,6 +75,7 @@ from stochqn_tpu_torch.utils.checkpoint import (load_sharded, load_state,
                                                 save_sharded, save_state)
 
 __all__ = [
+    "__version__",
     "Task", "Info",
     "OLBFGSConfig", "SQNConfig", "AdaQNConfig",
     "BFGSMemory", "BFGSMemoryInterleaved", "OLBFGSState", "SQNState",

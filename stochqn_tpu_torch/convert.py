@@ -21,7 +21,13 @@ bfloat16 rows (``pairs_bf16`` / ``fisher_bf16`` state) need no
 (``a.view(np.uint16)``), and a bfloat16 tensor goes out as its bit
 pattern, a ``uint16`` array, which ``from_numpy`` reads back as bfloat16
 and JAX as ``jax.lax.bitcast_convert_type(a, jnp.bfloat16)``: the round
-trip is exact both ways.
+trip is exact both ways.  A bfloat16 iterate (``x0`` of that dtype) and
+every field that takes its dtype travel the same way.
+
+``device`` names where the state goes; ``None`` means the card, as at
+every other entry point of the package
+(:func:`~stochqn_tpu_torch.core.protocol.resolve_device`: no CUDA device
+raises; pass ``device="cpu"`` for the CPU).
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from stochqn_tpu_torch.core.protocol import resolve_device
 from stochqn_tpu_torch.core.state import (AdaQNState, BFGSMemory,
                                           BFGSMemoryInterleaved, FisherMemory,
                                           OLBFGSState, SQNState)
@@ -38,6 +45,8 @@ _INT_FIELDS = frozenset({"head", "count", "perm", "niter", "section"})
 
 
 def _tensor(name, value, device):
+    """``value`` as a fresh tensor on ``device`` (None: the card)."""
+    device = resolve_device(device, "convert")
     arr = np.array(value, copy=True)
     if name in _INT_FIELDS:
         return torch.from_numpy(arr.astype(np.int64)).to(device)

@@ -50,11 +50,12 @@ import torch
 from stochqn_tpu_torch.core.config import AdaQNConfig
 from stochqn_tpu_torch.core.enums import Info, Task
 from stochqn_tpu_torch.core.protocol import (NO_PROBLEMS, AdvanceResult,
-                                             check_iterate_dtype, commit_info,
-                                             goto, host_ints, no_bad, resume,
-                                             scalar_like, step_info)
+                                             cast_scalar, check_iterate_dtype,
+                                             commit_info, goto, host_ints,
+                                             no_bad, resume, scalar_like,
+                                             step_info)
 from stochqn_tpu_torch.core.state import AdaQNState
-from stochqn_tpu_torch.ops.accumulators import diag_rescal
+from stochqn_tpu_torch.ops.accumulators import diag_rescal, rsqrt
 from stochqn_tpu_torch.ops.pairs import (commit_pair, conditional_flush,
                                          direction_is_bad, fisher_y)
 from stochqn_tpu_torch.ops.two_loop import two_loop_cached
@@ -83,7 +84,7 @@ def step(cfg: AdaQNConfig, state: AdaQNState, grad: torch.Tensor,
     rescaled, acc_sq = diag_rescal(grad, state.grad_sum_sq, cfg.scal_reg,
                                    cfg.rmsprop_weight)
     h0_diag = (rescaled if cfg.h0_exact_reference
-               else torch.rsqrt(acc_sq + cfg.scal_reg))
+               else rsqrt(acc_sq + cast_scalar(cfg.scal_reg, acc_sq.dtype)))
     d_mem = two_loop_cached(grad, state.mem, diag=h0_diag,
                             use_pallas=cfg.use_pallas, coupling=cfg.coupling,
                             comm=comm)
@@ -129,7 +130,7 @@ def advance(cfg: AdaQNConfig, state: AdaQNState, grad: torch.Tensor,
         niter += 1
         if niter % L != 0:
             return resume(st, info, changed)
-        x_avg = st.x_sum * (1.0 / L)
+        x_avg = st.x_sum * cast_scalar(1.0 / L, st.x.dtype)
         if niter == L:
             st = st.replace(x_avg_prev=x_avg,
                             x_sum=torch.zeros_like(st.x_sum))
@@ -170,7 +171,7 @@ def advance(cfg: AdaQNConfig, state: AdaQNState, grad: torch.Tensor,
 
     if section == 5:
         x_avg = st.x_sum        # divided in section 1
-        reject = ((f > cfg.max_incr * st.f_prev)
+        reject = ((f > cast_scalar(cfg.max_incr, f.dtype) * st.f_prev)
                   | torch.logical_not(torch.isfinite(f)))
         if bool(reject):        # read on the host: it picks the next request
             # x_sum deliberately not reset (reference quirk)

@@ -71,6 +71,17 @@ def scalar_like(value, x: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(value, dtype=x.dtype, device=x.device)
 
 
+def cast_scalar(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype`` where torch would not round it: a
+    Python number meeting a bfloat16 tensor is taken at float32 precision
+    by torch, while the JAX package rounds it to bfloat16 first (weak
+    typing).  float32 and float64 round alike in both, so ``value`` comes
+    back as it is for them."""
+    if dtype == torch.bfloat16:
+        return float(torch.tensor(value, dtype=dtype))
+    return value
+
+
 def resolve_device(device, what: str = "free mode") -> torch.device:
     """``device`` as a :class:`torch.device`; ``None`` means the card, and
     raises where there is none (``what`` names the caller in the message).
@@ -85,13 +96,14 @@ def resolve_device(device, what: str = "free mode") -> torch.device:
 
 
 def check_iterate_dtype(x0: torch.Tensor, what: str) -> None:
-    """The iterate of every state is float32 or float64; bfloat16 is a
-    storage option of the pair and Fisher memories (``pairs_bf16``,
-    ``fisher_bf16``), whose math stays in the iterate's dtype."""
-    if x0.dtype not in (torch.float32, torch.float64):
+    """The iterate of every state is float32, float64 or bfloat16, as in
+    the JAX package.  A bfloat16 iterate keeps ``x``, the pair rows and
+    every other ``[n]`` field in bfloat16; the memories' small math (Gram,
+    ``rho``, the caches, ``gamma``) stays float32."""
+    if x0.dtype not in (torch.float32, torch.float64, torch.bfloat16):
         raise NotImplementedError(
-            f"{what} state is float32 or float64, got {x0.dtype} (for "
-            "bfloat16 memories pass pairs_bf16 / fisher_bf16)")
+            f"{what} state is float32, float64 or bfloat16, got "
+            f"{x0.dtype}")
 
 
 def no_bad(x: torch.Tensor) -> torch.Tensor:

@@ -40,9 +40,10 @@ import torch
 from stochqn_tpu_torch.core.config import SQNConfig
 from stochqn_tpu_torch.core.enums import Task
 from stochqn_tpu_torch.core.protocol import (NO_PROBLEMS, AdvanceResult,
-                                             check_iterate_dtype, commit_info,
-                                             goto, host_ints, no_bad, resume,
-                                             scalar_like, step_info)
+                                             cast_scalar, check_iterate_dtype,
+                                             commit_info, goto, host_ints,
+                                             no_bad, resume, scalar_like,
+                                             step_info)
 from stochqn_tpu_torch.core.state import SQNState
 from stochqn_tpu_torch.ops.pairs import (commit_pair, conditional_flush,
                                          direction_is_bad)
@@ -93,7 +94,7 @@ def advance(cfg: SQNConfig, state: SQNState, grad: torch.Tensor,
         niter += 1
         if niter % L != 0:
             return resume(st, info, changed)
-        x_avg = st.x_sum * (1.0 / L)
+        x_avg = st.x_sum * cast_scalar(1.0 / L, st.x.dtype)
         if niter == L:
             # archive the first averages (src/stochqn.c:1078-1094)
             st = st.replace(x_avg_prev=x_avg,

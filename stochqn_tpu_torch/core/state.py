@@ -347,6 +347,30 @@ class FisherMemory:
             head=torch.remainder(self.head + 1, size),  # also kept in shift
             count=torch.clamp(self.count + 1, max=size))
 
+    def append_block(self, grads: torch.Tensor) -> "FisherMemory":
+        """Append ``grads [k, n]`` in order: the same memory as ``k``
+        successive :meth:`append` calls, in one write (one rebuild in
+        shift mode).  Only the last ``fisher_size`` rows can survive, so
+        only those are written.  Ring mode writes ``self.f`` in place, as
+        :meth:`append` does, so ``self`` is consumed.  The fused engine
+        appends one row per step and does not call it."""
+        size = self.f.shape[0]
+        k = grads.shape[0]
+        keep = min(k, size)
+        rows = grads[k - keep:].to(self.f.dtype)
+        if self.shift:
+            f = torch.cat([rows.flip(0), self.f[:size - keep]], dim=0)
+        else:
+            slots = torch.remainder(
+                self.head + (k - keep)
+                + torch.arange(keep, dtype=torch.int64, device=rows.device),
+                size)
+            f = self.f.index_copy_(0, slots, rows)
+        return self.replace(
+            f=f,
+            head=torch.remainder(self.head + k, size),
+            count=torch.clamp(self.count + k, max=size))
+
     def replace(self, **changes) -> "FisherMemory":
         return dataclasses.replace(self, **changes)
 

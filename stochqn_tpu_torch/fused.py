@@ -59,6 +59,7 @@ told how the ranks' results combine.  With no mesh nothing of this runs.
 from __future__ import annotations
 
 import dataclasses
+import numbers
 from typing import Any, Callable, Optional, Tuple
 
 import torch
@@ -66,9 +67,9 @@ import torch
 from stochqn_tpu_torch.core import adaqn, olbfgs, sqn
 from stochqn_tpu_torch.core.config import AdaQNConfig, OLBFGSConfig, SQNConfig
 from stochqn_tpu_torch.core.enums import Info
-from stochqn_tpu_torch.core.protocol import (commit_info, no_bad,
-                                             resolve_device, scalar_like,
-                                             step_info)
+from stochqn_tpu_torch.core.protocol import (cast_scalar, commit_info,
+                                             no_bad, resolve_device,
+                                             scalar_like, step_info)
 from stochqn_tpu_torch.core.state import AdaQNState, OLBFGSState, SQNState
 from stochqn_tpu_torch.models.losses import hvp_from_grad
 from stochqn_tpu_torch.ops.pairs import (commit_pair, conditional_flush,
@@ -88,6 +89,22 @@ ObjFn = Callable[[torch.Tensor, Batch], torch.Tensor]
 HessVecFn = Callable[[torch.Tensor, torch.Tensor, Batch], torch.Tensor]
 
 _FINC = int(Info.FUNC_INCREASED)
+
+
+def step_like(step_size, x: torch.Tensor) -> torch.Tensor:
+    """The step size as a tensor of the iterate's dtype on its device
+    (:func:`~stochqn_tpu_torch.core.protocol.scalar_like`).  A float32 or
+    float64 step tensor or array with a bfloat16 iterate raises a
+    ``TypeError``: the JAX package's epoch refuses that input (its step
+    would turn the bfloat16 iterate float32); a number (Python or numpy
+    scalar) or a bfloat16 step is taken."""
+    dt = getattr(step_size, "dtype", None)
+    if (x.dtype == torch.bfloat16 and not isinstance(step_size, numbers.Real)
+            and str(dt).removeprefix("torch.") in ("float32", "float64")):
+        raise TypeError(
+            f"a {dt} step size with a {x.dtype} iterate: pass a Python "
+            "float or a bfloat16 step")
+    return scalar_like(step_size, x)
 
 
 def _tree_map(fn, batch, *more):
@@ -228,7 +245,7 @@ def _sqn_boundary(cfg: SQNConfig, grad_fn: GradFn, state: SQNState,
     the Hessian-vector product and the commit on a meaningless ``s``, and
     vetoes the commit with ``enabled = not first``."""
     st = state
-    x_avg = st.x_sum * (1.0 / cfg.upd_freq)
+    x_avg = st.x_sum * cast_scalar(1.0 / cfg.upd_freq, st.x.dtype)
     is_first = st.niter == cfg.upd_freq
     not_first = torch.logical_not(is_first)
 
@@ -281,7 +298,7 @@ def _adaqn_boundary(cfg: AdaQNConfig, grad_fn: GradFn,
     ``use_grad_diff`` ``x_avg_prev`` is refreshed only on the first
     archive (``src/stochqn.c:1265-1270``)."""
     st = state
-    x_avg = st.x_sum * (1.0 / cfg.upd_freq)
+    x_avg = st.x_sum * cast_scalar(1.0 / cfg.upd_freq, st.x.dtype)
     is_first = st.niter == cfg.upd_freq
     not_first = torch.logical_not(is_first)
     base_info = step_info(bad)
@@ -290,7 +307,8 @@ def _adaqn_boundary(cfg: AdaQNConfig, grad_fn: GradFn,
     if cfg.max_incr > 0:
         f = torch.as_tensor(obj_fn(x_avg, fval_batch), dtype=st.x.dtype,
                             device=st.x.device)
-        reject = not_first & ((f > cfg.max_incr * st.f_prev)
+        reject = not_first & ((f > cast_scalar(cfg.max_incr, f.dtype)
+                                    * st.f_prev)
                               | torch.logical_not(torch.isfinite(f)))
         # accept (or first): record f; reject: keep f_prev
         st = st.replace(f_prev=torch.where(reject, st.f_prev, f))
@@ -474,7 +492,7 @@ class FusedTrainer:
         ``(state, infos[L])`` (int32).  oLBFGS has no boundary: a round is
         one :func:`olbfgs_step` per minibatch, of any count."""
         L = _first_leaf(round_data).shape[0]
-        eta = scalar_like(step_size, state.x)
+        eta = step_like(step_size, state.x)
         comm = self._comm
         if self.optimizer == "oLBFGS":
             infos = []
@@ -521,7 +539,7 @@ class FusedTrainer:
         num_batches = _first_leaf(data).shape[0]
         L = self.cfg.upd_freq
         window = min(L, num_batches)
-        eta = scalar_like(step_size, state.x)
+        eta = step_like(step_size, state.x)
         infos = []
         for i in range(num_batches):
             phase = (phase + 1) % L
@@ -562,7 +580,7 @@ class FusedTrainer:
             if self.paired_grads:
                 return _olbfgs_epoch_paired(self.cfg, self._grad, state,
                                             data,
-                                            scalar_like(step_size, state.x),
+                                            step_like(step_size, state.x),
                                             self._comm, self._pair_grads)
             return self.round(state, data, step_size)
         num_batches = _first_leaf(data).shape[0]
@@ -605,7 +623,7 @@ class FusedTrainer:
         in :meth:`epoch`); the host count then advances by ``B`` per epoch,
         so with ``aligned=True`` (or oLBFGS) no device value is read on
         the host at all."""
-        steps = torch.broadcast_to(scalar_like(step_size, state.x),
+        steps = torch.broadcast_to(step_like(step_size, state.x),
                                    (nepochs,))
         return self._drive(state, [data] * nepochs, steps, aligned)
 
@@ -643,7 +661,7 @@ class FusedTrainer:
                 f"batch_size={batch_size} (each epoch row lists exactly the "
                 "gathered batch rows)")
         nbatch = rows // batch_size
-        steps = torch.broadcast_to(scalar_like(step_sizes, state.x),
+        steps = torch.broadcast_to(step_like(step_sizes, state.x),
                                    (nepochs,))
 
         def gathered(e):
@@ -675,7 +693,7 @@ class FusedTrainer:
             for _ in range(nepochs):
                 yield local if shuffle is None else self._local(
                     shuffle_batched(data, shuffle))
-        steps = [scalar_like(step_size if decr_step_size is None
+        steps = [step_like(step_size if decr_step_size is None
                              else decr_step_size(step_size, e), state.x)
                  for e in range(nepochs)]
         return self._drive(state, epoch_data(), steps, None)

@@ -43,7 +43,7 @@ import torch
 from scipy.sparse import issparse, vstack as sp_vstack
 
 from stochqn_tpu_torch.core.enums import INFO_NAMES, Info
-from stochqn_tpu_torch.free import SQN_free, adaQN_free, oLBFGS_free
+from stochqn_tpu_torch.free import SQN_free, _numpy, adaQN_free, oLBFGS_free
 from stochqn_tpu_torch.fused import FusedTrainer, batchify
 from stochqn_tpu_torch.parallel.mesh import (MeshComm, gather_state,
                                              shard_batches, shard_state)
@@ -99,7 +99,21 @@ def _train_test_split(arrays, test_size, random_state):
 
 
 def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """The host dtype of ``dtype``: float32 for bfloat16, which numpy does
+    not have (float32 holds every bfloat16 value exactly)."""
+    if dtype == torch.bfloat16:
+        return np.dtype(np.float32)
     return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def _host_array(a, dtype: torch.dtype) -> np.ndarray:
+    """``a`` as a fresh flat numpy array of ``dtype``'s values: rounded to
+    bfloat16 (and held in float32) for a bfloat16 ``dtype``, as the JAX
+    package's ``np.asarray(a, jnp.bfloat16)`` rounds."""
+    arr = np.asarray(a, dtype=_numpy_dtype(dtype)).reshape(-1)
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(arr).to(dtype).float().numpy()
+    return arr.copy()
 
 
 def _data_dtype(arr: np.ndarray, dtype: torch.dtype) -> torch.dtype:
@@ -115,7 +129,7 @@ def _to_device(a, dtype: torch.dtype, device) -> torch.Tensor:
     t = _data_dtype(arr, dtype)
     if arr.dtype.kind == "f":
         arr = arr.astype(_numpy_dtype(t), copy=False)
-    return torch.as_tensor(arr, device=device)
+    return torch.as_tensor(arr, device=device).to(t)
 
 
 class _GuidedBase:
@@ -148,8 +162,7 @@ class _GuidedBase:
                 raise ValueError(
                     "Must provide 'obj_fun' when using a validation fraction")
 
-        self.x = np.asarray(x0, dtype=_numpy_dtype(self.optimizer.dtype)
-                            ).reshape(-1).copy()
+        self.x = _host_array(x0, self.optimizer.dtype)
         self.n = self.x.shape[0]
         self.step_size = float(step_size)
         self.grad_fun = grad_fun
@@ -455,7 +468,7 @@ class _GuidedBase:
         """None when ``engine='fused'`` can run; else a human-readable
         reason for the protocol fallback."""
         if self.optimizer.backend != "torch":
-            return f"the optimizer uses the {self.optimizer.backend} backend"
+            return "the optimizer uses the native (C++) backend"
         if issparse(X) or issparse(y):
             return ("sparse inputs — use the protocol loop or the sparse "
                     "fused path in models.logistic")
@@ -600,7 +613,7 @@ class _GuidedBase:
         def host_x(state):
             x = state.x if mesh is None else MeshComm(mesh).gather_param(
                 [state.x], "gather x")[0]
-            return x.cpu().numpy()
+            return _numpy(x)
 
         state = self.optimizer.state
         if mesh is not None:
@@ -728,7 +741,7 @@ class _GuidedBase:
         if mesh is not None:
             state = gather_state(state, mesh)
         self.optimizer.adopt_state(state)
-        self.x = state.x.cpu().numpy().astype(self.x.dtype).reshape(-1)
+        self.x = _numpy(state.x).astype(self.x.dtype).reshape(-1)
         self.req = {
             "task": "calc_grad",
             "requested_on": self.x.copy(),

@@ -35,7 +35,7 @@ from scipy.sparse import issparse
 
 from stochqn_tpu_torch.core.config import AdaQNConfig, OLBFGSConfig, SQNConfig
 from stochqn_tpu_torch.core.protocol import resolve_device
-from stochqn_tpu_torch.free import _resolve_dtype
+from stochqn_tpu_torch.free import _numpy, _resolve_dtype
 from stochqn_tpu_torch.fused import FusedTrainer, batchify, shuffle_batched
 from stochqn_tpu_torch.guided import SQN, _numpy_dtype, adaQN, oLBFGS
 from stochqn_tpu_torch.parallel.mesh import (MeshComm, gather_state,
@@ -79,7 +79,7 @@ def _padded(X, dtype: torch.dtype, max_nnz=None, device=None):
     idx, val = sparse_losses.csr_to_padded(X, max_nnz=max_nnz,
                                            dtype=_numpy_dtype(dtype))
     out = (torch.from_numpy(idx.astype(np.int64)).to(device),
-           torch.from_numpy(val).to(device))
+           torch.from_numpy(val).to(device=device, dtype=dtype))
     try:
         X._stochqn_padded = (key, out)
     except AttributeError:  # immutable container; just skip the memo
@@ -259,12 +259,12 @@ class StochasticLogisticRegression:
 
         def grad_fun(x, X, y, sample_weight=None, reg_param=reg):
             x, feats, y, w, (_, grad, _) = prepared(x, X, y, sample_weight)
-            return grad(x, *feats, y, w, reg_param).cpu().numpy()
+            return _numpy(grad(x, *feats, y, w, reg_param))
 
         def hess_vec_fun(x, v, X, y, sample_weight=None, reg_param=reg):
             x, feats, y, w, (_, _, hv) = prepared(x, X, y, sample_weight)
-            return hv(x, self._tensor(v), *feats, y, w,
-                      reg_param).cpu().numpy()
+            return _numpy(hv(x, self._tensor(v), *feats, y, w,
+                                reg_param))
 
         return obj_fun, grad_fun, hess_vec_fun
 
@@ -285,7 +285,7 @@ class StochasticLogisticRegression:
                     x, *feats, X.shape[1])
             else:
                 p = losses.binary_logistic_predict_proba(x, *feats)
-            return p.cpu().numpy()
+            return _numpy(p)
         return pred
 
     def _initial_weights(self, X, y):
@@ -437,7 +437,7 @@ class StochasticLogisticRegression:
                     break
         if self.mesh is not None:
             state = gather_state(state, self.mesh)
-        self._x_fused = state.x.cpu().numpy().astype(np.float64)
+        self._x_fused = _numpy(state.x).astype(np.float64)
         self._fused_state = state
         self.is_fitted = True
         return self

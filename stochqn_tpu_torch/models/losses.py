@@ -13,6 +13,12 @@ Counterpart of :mod:`stochqn_tpu.models.losses`, with the same conventions:
 :func:`hvp_from_grad` is forward-over-reverse: ``torch.func.jvp`` of a
 gradient function, what the fused engine uses when no closed-form
 Hessian-vector product is given.
+
+Data of another floating dtype than the parameters (float32 features with
+a bfloat16 iterate) is cast to the parameters' dtype inside each product,
+as the JAX package's ``jnp.matmul(..., preferred_element_type=w.dtype)``
+does on the CPU: a bfloat16 iterate gives the same steps on float32 data
+as on the same data rounded to bfloat16.
 """
 from __future__ import annotations
 
@@ -26,6 +32,14 @@ def hvp_from_grad(grad_fun: Callable) -> Callable:
     def hvp(x, v, *args):
         return torch.func.jvp(lambda xx: grad_fun(xx, *args), (x,), (v,))[1]
     return hvp
+
+
+def _mm(a, b, dtype):
+    """``a @ b`` with operands of two dtypes cast to ``dtype`` first
+    (torch refuses a mixed matmul)."""
+    if a.dtype == b.dtype:
+        return a @ b
+    return a.to(dtype) @ b.to(dtype)
 
 
 def _ensure_weights(sample_weight, n, dtype, device):
@@ -46,7 +60,7 @@ def _split_bin(w, n_features):
 
 def _bin_margins(w, X):
     coef, b = _split_bin(w, X.shape[1])
-    return X @ coef + b
+    return _mm(X, coef, w.dtype) + b
 
 
 def _signs(y, w):
@@ -70,7 +84,7 @@ def binary_logistic_grad(w, X, y, sample_weight=None, reg_param=0.0):
     z = _bin_margins(w, X)
     t = sw * (torch.sigmoid(y * z) - 1.0) * y     # [n]
     coef, _ = _split_bin(w, X.shape[1])
-    g_coef = t @ X + reg_param * coef
+    g_coef = _mm(t, X, w.dtype) + reg_param * coef
     if w.shape[0] == X.shape[1] + 1:
         return torch.cat([g_coef, torch.sum(t)[None]])
     return g_coef
@@ -82,8 +96,8 @@ def binary_logistic_hessvec(w, v, X, y, sample_weight=None, reg_param=0.0):
     dd = sw * sig * (1.0 - sig)                   # [n]
     nf = X.shape[1]
     v_coef, v_b = _split_bin(v, nf)
-    t = dd * (X @ v_coef + v_b)
-    h_coef = t @ X + reg_param * v_coef
+    t = dd * (_mm(X, v_coef, w.dtype) + v_b)
+    h_coef = _mm(t, X, w.dtype) + reg_param * v_coef
     if w.shape[0] == nf + 1:
         return torch.cat([h_coef, torch.sum(t)[None]])
     return h_coef
@@ -105,7 +119,7 @@ def _split_mult(w, n_features, n_classes):
 
 def _mult_logits(w, X, n_classes):
     coef, b = _split_mult(w, X.shape[1], n_classes)
-    return X @ coef.T + b[None, :]
+    return _mm(X, coef.T, w.dtype) + b[None, :]
 
 
 def multinomial_logistic_loss(w, X, Y, sample_weight=None, reg_param=0.0):
@@ -125,7 +139,7 @@ def multinomial_logistic_grad(w, X, Y, sample_weight=None, reg_param=0.0):
     p = torch.softmax(_mult_logits(w, X, n_classes), dim=-1)
     diff = sw[:, None] * (p - Y)                   # [n, k]
     coef, _ = _split_mult(w, X.shape[1], n_classes)
-    g_coef = diff.T @ X + reg_param * coef         # [k, nf]
+    g_coef = _mm(diff.T, X, w.dtype) + reg_param * coef     # [k, nf]
     if w.shape[0] == n_classes * (X.shape[1] + 1):
         g_b = torch.sum(diff, dim=0)               # [k]
         return torch.cat([g_coef, g_b[:, None]], dim=1).reshape(-1)
@@ -142,11 +156,11 @@ def multinomial_logistic_hessvec(w, v, X, Y, sample_weight=None,
     nf = X.shape[1]
     p = torch.softmax(_mult_logits(w, X, n_classes), dim=-1)   # [n, k]
     v_coef, v_b = _split_mult(v, nf, n_classes)
-    zv = X @ v_coef.T + v_b[None, :]
+    zv = _mm(X, v_coef.T, w.dtype) + v_b[None, :]
     # r = p * zv - p * (sum_c p_c zv_c)
     inner = torch.sum(p * zv, dim=1, keepdim=True)
     r = sw[:, None] * p * (zv - inner)             # [n, k]
-    h_coef = r.T @ X + reg_param * v_coef
+    h_coef = _mm(r.T, X, w.dtype) + reg_param * v_coef
     if w.shape[0] == n_classes * (nf + 1):
         h_b = torch.sum(r, dim=0)
         return torch.cat([h_coef, h_b[:, None]], dim=1).reshape(-1)

@@ -10,13 +10,25 @@ from typing import Tuple
 
 import torch
 
+from stochqn_tpu_torch.core.protocol import cast_scalar
+
+
+def rsqrt(t: torch.Tensor) -> torch.Tensor:
+    """``1 / sqrt(t)``; a bfloat16 ``t`` through float32 and rounded once,
+    as XLA computes it (torch's bfloat16 ``rsqrt`` on the CPU rounds in
+    between, a bfloat16 ulp or two from the nearest value)."""
+    if t.dtype == torch.bfloat16:
+        return torch.rsqrt(t.float()).to(t.dtype)
+    return torch.rsqrt(t)
+
 
 def update_sum_sq(grad: torch.Tensor, grad_sum_sq: torch.Tensor,
                   rmsprop_weight: float) -> torch.Tensor:
     """RMSProp EMA when ``0 < rmsprop_weight < 1``, else AdaGrad sum."""
     if 0.0 < rmsprop_weight < 1.0:
-        return (rmsprop_weight * grad_sum_sq
-                + (1.0 - rmsprop_weight) * (grad * grad))
+        dt = grad_sum_sq.dtype
+        return (cast_scalar(rmsprop_weight, dt) * grad_sum_sq
+                + cast_scalar(1.0 - rmsprop_weight, dt) * (grad * grad))
     return grad_sum_sq + grad * grad
 
 
@@ -31,4 +43,4 @@ def diag_rescal(grad: torch.Tensor, grad_sum_sq: torch.Tensor,
     rejects later (``src/stochqn.c:765,811,818``).
     """
     acc = update_sum_sq(grad, grad_sum_sq, rmsprop_weight)
-    return grad * torch.rsqrt(acc + scal_reg), acc
+    return grad * rsqrt(acc + cast_scalar(scal_reg, acc.dtype)), acc

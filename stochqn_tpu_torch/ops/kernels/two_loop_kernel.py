@@ -97,7 +97,8 @@ def direction_streamed_ref(s_mem: torch.Tensor, y_mem: torch.Tensor,
 
 def _check(name, storage, s_mem, y_mem, grad, c, gamma):
     """Argument checks of both direction wrappers; ``storage`` lists the
-    pair dtypes ``name`` takes."""
+    pair dtypes ``name`` takes.  ``grad`` is float32 (the wrapper has
+    upcast any other dtype it takes)."""
     tensors = (s_mem, y_mem, grad, c, gamma)
     dev = s_mem.device
     if any(t.device != dev for t in tensors):
@@ -140,11 +141,19 @@ def direction_streamed(s_mem: torch.Tensor, y_mem: torch.Tensor,
                        gamma: torch.Tensor) -> torch.Tensor:
     """``gamma * grad + W^T (c @ (W grad))`` with ``W = [s_mem; y_mem]``.
 
-    ``s_mem``/``y_mem`` ``[m, n]`` float32 or bfloat16; ``grad`` ``[n]``,
-    ``c`` ``[2m, 2m]`` and the one-element ``gamma`` float32; all
-    contiguous and on one device.  Returns ``d [n]`` float32.
+    ``s_mem``/``y_mem`` ``[m, n]`` float32 or bfloat16; ``grad`` ``[n]``
+    float32 or bfloat16; ``c`` ``[2m, 2m]`` and the one-element ``gamma``
+    float32; all contiguous and on one device.  Returns ``d [n]`` float32.
+
+    A bfloat16 ``grad`` (a bfloat16 iterate's) is upcast to float32 here,
+    exactly, before the kernel or the plain version sees it: the Pallas
+    wrapper's own ``grad.astype(jnp.float32)``.  That is one more pass
+    over ``grad`` (2n bytes read, 4n written), which a load templated on
+    the gradient's type inside the kernel would save.
     """
     global LAUNCHES
+    if grad.dtype == torch.bfloat16:
+        grad = grad.float()
     _check("direction_streamed", _STORAGE, s_mem, y_mem, grad, c, gamma)
     if not _on_cuda("direction_streamed", s_mem):
         return direction_streamed_ref(s_mem, y_mem, grad, c, gamma)

@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from stochqn_tpu_torch.core.protocol import cast_scalar
 from stochqn_tpu_torch.core.state import (BFGSMemory, BFGSMemoryInterleaved,
                                           FisherMemory)
 from stochqn_tpu_torch.ops.two_loop import (_chrono_perm, _mem_mm, _psum,
@@ -87,7 +88,7 @@ def commit_pair(mem: BFGSMemory, y_cand: torch.Tensor, min_curvature: float,
     """
     s = mem.s_pending
     if y_reg > 0:
-        y_cand = y_cand + y_reg * s
+        y_cand = y_cand + cast_scalar(y_reg, y_cand.dtype) * s
     if _sharded(comm):
         return _commit_sharded(mem, s, y_cand, min_curvature, enabled,
                                direction_cache, comm)

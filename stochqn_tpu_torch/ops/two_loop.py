@@ -11,10 +11,11 @@ interleaved ``W = sy``, both ``[2m, n]``; adaQN's is block only):
 
       d = gamma*g + W^T ((c0 + gamma*cg) @ (W g))
 
-  computed by a hand-written direction kernel for a float32 gradient
-  (``direction``, one read of ``W``, where the pairs are float32 and fit
-  the card's shared memory; else ``direction_streamed``), and by the same
-  three products in plain torch for any other dtype.  An interleaved
+  computed by a hand-written direction kernel for a float32 or bfloat16
+  gradient (``direction``, one read of ``W``, where the gradient and the
+  pairs are float32 and fit the card's shared memory; else
+  ``direction_streamed``), and by the same three products in plain torch
+  for float64.  An interleaved
   memory hands the kernels its two halves ``sy[:m]`` and ``sy[m:]``
   (views, no copy) with ``c0``/``cg`` in the same row order;
 * oLBFGS's uncollapsed scalar-H0 form, in plain torch: project ``W g``,
@@ -117,10 +118,12 @@ def two_loop_cached(grad: torch.Tensor, mem, *, h0: float = 0.0,
     also masks the stale collapsed cache after a flush.  The route is
     decided by dtype and shape before any launch: a float32 ``grad``
     takes :func:`direction` (float32 pairs within the card's cap) or
-    :func:`direction_streamed` (bfloat16 pairs, or over the cap), which on
-    CUDA launch their kernels or raise and on the CPU run their plain
-    versions; any other dtype (float64, bfloat16 state) takes the same
-    three products in plain torch on either device.
+    :func:`direction_streamed` (bfloat16 pairs, or over the cap), and a
+    bfloat16 ``grad`` (a bfloat16 iterate's) :func:`direction_streamed`
+    on its float32 upcast; on CUDA they launch their kernels or raise and
+    on the CPU run their plain versions.  float64 takes the same three
+    products in plain torch on either device.  The direction comes back
+    in ``grad``'s dtype.
 
     Scalar H0, ``collapsed=False``: oLBFGS's per-step direction (its
     commits build no ``c0``/``cg``), ``W g`` as two products over ``s`` and
@@ -218,14 +221,16 @@ def collapsed_route(first: torch.Tensor, grad: torch.Tensor,
     """The route the collapsed direction takes, decided before any launch:
     ``"split"`` on a sharded param axis; else ``"direction"`` (float32
     gradient and pairs within the card's cap) or ``"direction_streamed"``
-    (float32 gradient, bfloat16 pairs or over the cap); else ``"plain"``
-    (other dtypes)."""
+    (a float32 gradient with bfloat16 pairs or over the cap, or a
+    bfloat16 gradient, which the wrapper upcasts); else ``"plain"``
+    (float64)."""
     if _sharded(comm):
         return "split"
-    if grad.dtype == torch.float32 and acc_t == torch.float32 and (
-            first.dtype in (torch.float32, torch.bfloat16)):
+    kernel_types = (torch.float32, torch.bfloat16)
+    if (grad.dtype in kernel_types and acc_t == torch.float32
+            and first.dtype in kernel_types):
         m, n = first.shape
-        one_read = (first.dtype == torch.float32
+        one_read = (grad.dtype == first.dtype == torch.float32
                     and direction_fits(m, n, grad.device))
         return "direction" if one_read else "direction_streamed"
     return "plain"

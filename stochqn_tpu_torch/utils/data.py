@@ -22,8 +22,8 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
-from stochqn_tpu_torch.core.protocol import resolve_device, scalar_like
-from stochqn_tpu_torch.fused import _tree_map
+from stochqn_tpu_torch.core.protocol import resolve_device
+from stochqn_tpu_torch.fused import _tree_map, step_like
 
 
 def parse_extreme_classification(path, n_features=None, n_labels=None):
@@ -156,7 +156,7 @@ def stream_rounds(trainer, state, batch_iterator: Iterable, step_size,
     for r, round_data in enumerate(stream):
         eta = step_size(r) if callable(step_size) else step_size
         state, info = trainer.round(state, round_data,
-                                    scalar_like(eta, state.x))
+                                    step_like(eta, state.x))
         infos.append(info)
     if not infos:
         raise ValueError(

@@ -207,7 +207,7 @@ def test_mlp_matches_jax_from_carried_weights(rng):
                                    jnp.float64)
     np_params = [{k: np.asarray(v) for k, v in layer.items()}
                  for layer in jparams]
-    tparams = convert.mlp_params_from_numpy(np_params)
+    tparams = convert.mlp_params_from_numpy(np_params, device="cpu")
     back = convert.mlp_params_to_numpy(tparams)
     for la, lb in zip(back, np_params):
         for k in la:

@@ -420,7 +420,7 @@ def test_convert_round_trip_bf16(kind):
     jdata = (jnp.asarray(X), jnp.asarray(Y))
     jst, _ = jtr.jit_epochs()(jtr.init(jnp.asarray(x0)), jdata,
                               jnp.float32(ETA), nepochs=1)
-    tst = to_port(_jax_numpy(jst))
+    tst = to_port(_jax_numpy(jst), device="cpu")
     assert tst.mem.s.dtype == torch.bfloat16
     out = from_port(tst)
     bf16_rows = [("mem", "s"), ("mem", "y")]
@@ -434,7 +434,7 @@ def test_convert_round_trip_bf16(kind):
         assert back.dtype == jnp.bfloat16
         np.testing.assert_array_equal(np.asarray(back.astype(jnp.float32)),
                                       np.asarray(want.astype(jnp.float32)))
-    assert torch.equal(to_port(out).mem.s, tst.mem.s)
+    assert torch.equal(to_port(out, device="cpu").mem.s, tst.mem.s)
     jst, jinfos = jtr.jit_epochs()(jst, jdata, jnp.float32(ETA), nepochs=1)
     tst, tinfos = ttr.epochs(tst, (torch.from_numpy(X), torch.from_numpy(Y)),
                              ETA, nepochs=1)

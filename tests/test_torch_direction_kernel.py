@@ -75,8 +75,8 @@ def _bad_args(case):
         s, y = s.double(), y.double()
     elif case == "mixed_storage":
         y = y.to(torch.bfloat16)
-    elif case == "bf16_grad":
-        g = g.to(torch.bfloat16)
+    elif case == "f16_grad":
+        g = g.to(torch.float16)
     elif case == "grad_shape":
         g = g[:-1]
     elif case == "c_shape":
@@ -96,7 +96,7 @@ def _bad_args(case):
 
 @pytest.mark.parametrize("case,exc", [
     ("float64_storage", TypeError), ("mixed_storage", TypeError),
-    ("bf16_grad", TypeError), ("grad_shape", ValueError),
+    ("f16_grad", TypeError), ("grad_shape", ValueError),
     ("c_shape", ValueError), ("gamma_vector", ValueError),
     ("noncontiguous", ValueError), ("too_many_pairs", ValueError),
     ("mixed_device", ValueError)])
@@ -148,3 +148,23 @@ def test_kernel_parks_by_the_cards_shared_memory(cuda_device):
     f32, bf16 = (parked(20, n, t, cuda_device)
                  for t in (torch.float32, torch.bfloat16))
     assert 0 < parked(32, n, torch.float32, cuda_device) < f32 < bf16 < n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [700, 1503, 292_083])
+def test_bf16_gradient_matches_ref_on_cuda(cuda_device, n, storage):
+    """A bfloat16 gradient (a bfloat16 iterate's): one launch on its
+    upcast, against the plain version on the same upcast inputs, and the
+    float32-gradient call's bits."""
+    s, y, g, c, gamma = _torch_args(*_inputs(n, m=M), storage, cuda_device)
+    g16 = g.to(torch.bfloat16)
+    launches = tlk.LAUNCHES
+    got = tlk.direction_streamed(s, y, g16, c, gamma)
+    torch.cuda.synchronize()
+    assert tlk.LAUNCHES == launches + 1 and got.dtype == torch.float32
+    want = tlk.direction_streamed_ref(s, y, g16.float(), c, gamma)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, tlk.direction_streamed(s, y, g16.float(), c,
+                                                   gamma))

@@ -81,7 +81,7 @@ def test_direction_matches_collapsed_two_loop_of_both_packages():
     want = np.asarray(jax_two_loop(jnp.asarray(g), jmem, collapsed=True))
     mem = bfgs_memory_from_numpy(
         {f.name: np.asarray(getattr(jmem, f.name))
-         for f in dataclasses.fields(jmem)})
+         for f in dataclasses.fields(jmem)}, device="cpu")
     tg = torch.from_numpy(g)
     got = tlk.direction(mem.s, mem.y, tg, mem.c0 + mem.gamma * mem.cg,
                         mem.gamma)
@@ -105,12 +105,13 @@ def _port_mem(dtype, storage):
     (torch.float32, torch.float32, "direction"),
     (torch.float32, torch.bfloat16, "direction_streamed"),
     (torch.float64, torch.float64, "plain"),
-    (torch.bfloat16, torch.bfloat16, "plain"),
+    (torch.bfloat16, torch.bfloat16, "direction_streamed"),
 ], ids=["float32", "bf16_pairs", "float64", "bf16_state"])
 def test_gate_routes_by_dtype(monkeypatch, dtype, storage, route):
     """The collapsed branch decides its route before any call: float32
-    gradient and pairs take ``direction``, bfloat16 pairs
-    ``direction_streamed``, any other dtype plain torch."""
+    gradient and pairs take ``direction``, bfloat16 pairs or a bfloat16
+    gradient (a bfloat16 iterate's) ``direction_streamed``, float64 plain
+    torch."""
     calls = []
     for name in ("direction", "direction_streamed"):
         def spy(*args, _name=name, _fn=getattr(tlk, name)):

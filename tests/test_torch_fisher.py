@@ -56,6 +56,34 @@ def test_append_matches_jax(shift):
     assert int(tf.count) == FS and int(tf.head) == (FS + 3) % FS
 
 
+@pytest.mark.parametrize("k,pre", [(2, 0), (4, 3), (6, 1), (9, 2)])
+@pytest.mark.parametrize("shift", [True, False], ids=["shift", "ring"])
+def test_append_block_matches_jax(shift, k, pre):
+    """``append_block(g[k])`` after ``pre`` single appends: the JAX
+    package's ``append_block`` and the port's ``k`` successive
+    ``append`` calls, exactly (partial fills, and k past fisher_size)."""
+    pre_grads, grads = _grads(pre, seed=10 + pre), _grads(k, seed=20 + k)
+    jf = jstate.FisherMemory.create(FS, N, jnp.float32, shift=shift)
+    tf = tstate.FisherMemory.create(FS, N, torch.float32, shift=shift)
+    seq = tstate.FisherMemory.create(FS, N, torch.float32, shift=shift)
+    for g in pre_grads:
+        jf, tf = jf.append(jnp.asarray(g)), tf.append(torch.from_numpy(g))
+        seq = seq.append(torch.from_numpy(g))
+    for g in grads:
+        seq = seq.append(torch.from_numpy(g))
+    jf = jf.append_block(jnp.asarray(grads))
+    tf = tf.append_block(torch.from_numpy(grads))
+    _assert_fisher_equal(tf, jf)
+    _assert_fisher_equal(seq, jf)
+
+
+def test_ring_append_block_writes_in_place():
+    tf = tstate.FisherMemory.create(FS, N, torch.float32, shift=False)
+    buf = tf.f
+    out = tf.append_block(torch.ones(2, N))
+    assert out.f is buf and bool((buf[:2] == 1).all())
+
+
 def test_ring_append_writes_in_place():
     tf = tstate.FisherMemory.create(FS, N, torch.float32, shift=False)
     buf = tf.f
@@ -78,7 +106,7 @@ def test_flush_matches_jax():
     jf = jstate.FisherMemory.create(FS, N, jnp.float32)
     for g in _grads(3):
         jf = jf.append(jnp.asarray(g))
-    tf = fisher_memory_from_numpy(_jax_fields(jf))
+    tf = fisher_memory_from_numpy(_jax_fields(jf), device="cpu")
     jf, tf2 = jf.flush(), tf.flush()
     _assert_fisher_equal(tf2, jf)
     assert int(tf2.count) == 0 and tf2.f is tf.f   # rows stay, count goes

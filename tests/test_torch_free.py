@@ -270,7 +270,7 @@ def _continue_both(jopt, mod, cfg, from_numpy, to_numpy, problem, req, b,
     """From ``jopt``'s current state (not disturbed), 12 transitions of
     the JAX ``advance`` and of the port's on the same numpy feeds."""
     jst = jopt.state
-    tst = from_numpy(_jax_numpy(jst))
+    tst = from_numpy(_jax_numpy(jst), device=CPU)
     task = req["task"]
     for k in range(12):
         # the evaluation the pending request asked for, at the JAX point
@@ -379,8 +379,11 @@ def test_device_dtype_and_backend_arguments():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             SQN_free()
-    with pytest.raises(NotImplementedError, match="ROADMAP A.16"):
-        adaQN_free(backend="native", device=CPU)
+    assert adaQN_free(backend="native").device == CPU
+    with pytest.raises(ValueError, match="C\\+\\+ core on the CPU"):
+        adaQN_free(backend="native", device="cuda")
+    with pytest.raises(ValueError, match="float32 or float64"):
+        SQN_free(backend="native", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="backend"):
         SQN_free(backend="jax", device=CPU)
     assert SQN_free(device=CPU).dtype == torch.float64
@@ -395,9 +398,9 @@ def test_device_dtype_and_backend_arguments():
     opt.run_optimizer(np.zeros(3), 0.1)
     assert opt.state.mem.s.dtype == torch.bfloat16
     assert opt.state.x.dtype == torch.float64
-    with pytest.raises(NotImplementedError, match="pairs_bf16"):
-        SQN_free(device=CPU, dtype=torch.bfloat16).run_optimizer(
-            np.zeros(3, np.float32), 0.1)
+    opt = SQN_free(device=CPU, dtype="bfloat16")
+    opt.run_optimizer(np.zeros(3, np.float32), 0.1)
+    assert opt.state.x.dtype == opt.state.mem.s.dtype == torch.bfloat16
     with pytest.raises(ValueError, match="rmsprop_weight"):
         adaQN_free(device=CPU, rmsprop_weight=1.5)
 

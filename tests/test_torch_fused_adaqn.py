@@ -210,7 +210,7 @@ def test_ring_mode_fisher_matches_jax():
     jst = jtr.init(jnp.asarray(x0))
     jst = jst.replace(fisher=jst.fisher.replace(shift=False))
     jst, _ = _run_jax(jtr, jst, X, Y, [ETA])
-    tst = adaqn_state_from_numpy(_jax_numpy(jst))
+    tst = adaqn_state_from_numpy(_jax_numpy(jst), device="cpu")
     assert not tst.fisher.shift
     _assert_state_close(tst, jst)
     jst, jinfos = _run_jax(jtr, jst, X, Y, [ETA])
@@ -261,7 +261,7 @@ def test_numpy_round_trip_is_exact():
     _, ttr = _trainers({})
     tst, _ = _run_torch(ttr, ttr.init(torch.from_numpy(x0)), X, Y, [ETA])
     d = adaqn_state_to_numpy(tst)
-    back = adaqn_state_to_numpy(adaqn_state_from_numpy(d))
+    back = adaqn_state_to_numpy(adaqn_state_from_numpy(d, device="cpu"))
     for name in ("x", "f_prev", "grad_sum_sq", "niter"):
         np.testing.assert_array_equal(back[name], d[name])
     for sub in ("mem", "fisher"):

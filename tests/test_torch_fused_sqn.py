@@ -157,7 +157,7 @@ def test_carry_over_from_jax_state():
     X, Y, x0 = _data()
     jtr, ttr = _trainers("jvp", {})
     jst, _ = _run_jax(jtr, jtr.init(jnp.asarray(x0)), X, Y, [ETA])
-    tst = sqn_state_from_numpy(_jax_numpy(jst))
+    tst = sqn_state_from_numpy(_jax_numpy(jst), device="cpu")
     _assert_state_close(tst, jst)
     jst, jinfos = _run_jax(jtr, jst, X, Y, [ETA])
     tst, tinfos = _run_torch(ttr, tst, X, Y, [ETA])
@@ -170,12 +170,26 @@ def test_numpy_round_trip_is_exact():
     _, ttr = _trainers("jvp", {})
     tst, _ = _run_torch(ttr, ttr.init(torch.from_numpy(x0)), X, Y, [ETA])
     d = sqn_state_to_numpy(tst)
-    back = sqn_state_to_numpy(sqn_state_from_numpy(d))
+    back = sqn_state_to_numpy(sqn_state_from_numpy(d, device="cpu"))
     for name in ("x", "x_sum", "niter"):
         np.testing.assert_array_equal(back[name], d[name])
     for name in d["mem"]:
         np.testing.assert_array_equal(back["mem"][name], d["mem"][name])
     assert d["mem"]["perm"].dtype == np.int32
+
+
+def test_convert_with_no_device_means_the_card():
+    """``*_from_numpy`` with no device puts the state on the card, as
+    every other entry point does: where there is none it raises (it used
+    to return CPU tensors)."""
+    X, Y, x0 = _data()
+    _, ttr = _trainers("jvp", {})
+    d = sqn_state_to_numpy(ttr.init(torch.from_numpy(x0)))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            sqn_state_from_numpy(d)
+        return
+    assert sqn_state_from_numpy(d).x.device.type == "cuda"
 
 
 def test_nan_step_flushes_on_both_sides():
@@ -221,8 +235,9 @@ def test_unaligned_layouts_raise():
 
 @pytest.mark.parametrize("optimizer", ["oLBFGS", "adaQN"])
 def test_unported_optimizers_raise(optimizer):
-    """bfloat16 memories are built (pairs_bf16, fisher_bf16); a bfloat16
-    iterate is not, and raises."""
+    """bfloat16 memories are built (pairs_bf16, fisher_bf16), and so is a
+    bfloat16 iterate (its pair rows bfloat16, its Gram float32); a float16
+    iterate raises."""
     if optimizer == "oLBFGS":
         trainer = FusedTrainer(optimizer, OLBFGSConfig.create(
             pairs_bf16=True), _torch_grad)
@@ -233,8 +248,11 @@ def test_unported_optimizers_raise(optimizer):
         st = trainer.init(torch.zeros(3))
         assert st.fisher.f.dtype == torch.bfloat16
         assert st.mem.s.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="pairs_bf16"):
-        trainer.init(torch.zeros(3, dtype=torch.bfloat16))
+    st = trainer.init(torch.zeros(3, dtype=torch.bfloat16))
+    assert st.x.dtype == st.mem.s.dtype == torch.bfloat16
+    assert st.mem.gram.dtype == torch.float32
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        trainer.init(torch.zeros(3, dtype=torch.float16))
 
 
 def _init_trainer(optimizer):

@@ -259,8 +259,9 @@ def test_engine_mesh_and_backend_args(rng):
         opt.fit(X, y, engine="fused", mesh=object())
     with pytest.raises(ValueError, match="requires engine='fused'"):
         opt.fit(X, y, engine="protocol", mesh=object())
-    with pytest.raises(NotImplementedError, match="A.16"):
-        tg.oLBFGS(np.zeros(3), grad, backend="native", device="cpu")
+    native = tg.oLBFGS(np.zeros(3), grad, backend="native", device="cpu")
+    assert native._fused_unsupported_reason(X, y, None) == (
+        "the optimizer uses the native (C++) backend")
 
 
 # ---------------------------------------------------------------------- #

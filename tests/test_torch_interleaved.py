@@ -229,11 +229,11 @@ def test_converter_round_trip_is_exact(layout):
     d = bfgs_memory_interleaved_to_numpy(tmem)
     assert d["shift"] is (layout == "shift") and d["perm"].dtype == np.int32
     back = bfgs_memory_interleaved_to_numpy(
-        bfgs_memory_interleaved_from_numpy(d))
+        bfgs_memory_interleaved_from_numpy(d, device="cpu"))
     for name in d:
         np.testing.assert_array_equal(back[name], d[name])
     # and from the JAX memory's own fields
-    assert_mem_close(bfgs_memory_interleaved_from_numpy(jax_fields(jmem)),
+    assert_mem_close(bfgs_memory_interleaved_from_numpy(jax_fields(jmem), "cpu"),
                      jmem, "float32")
 
 
@@ -336,7 +336,7 @@ def test_fused_sqn_interleaved_carry_over_from_jax():
     ep = jtr.jit_epochs()
     jst, _ = ep(jtr.init(jnp.asarray(x0)), data_j, jnp.asarray([ETA]),
                 nepochs=1)
-    tst = sqn_state_from_numpy(jax_fields(jst))
+    tst = sqn_state_from_numpy(jax_fields(jst), device="cpu")
     assert isinstance(tst.mem, BFGSMemoryInterleaved)
     jst, jinfos = ep(jst, data_j, jnp.asarray([ETA]), nepochs=1)
     tst, tinfos = ttr.epochs(tst, (torch.from_numpy(X), torch.from_numpy(Y)),

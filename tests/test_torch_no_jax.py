@@ -31,6 +31,22 @@ free.oLBFGS_free(device="cpu", pairs_interleaved=True).run_optimizer(
     [0.0, 1.0], 0.1)
 free.SQN_free(device="cpu").run_optimizer([0.0, 1.0], 0.1)
 free.adaQN_free(device="cpu").run_optimizer([0.0, 1.0], 0.1)
+# the bfloat16 iterate, and the C++ core through the port's own bridge
+import torch
+from stochqn_tpu_torch import native_backend
+x_bf16 = np.array([0.3, 1.7], np.float32)
+opt = free.SQN_free(device="cpu", dtype=torch.bfloat16)
+req = opt.run_optimizer(x_bf16, 0.1)
+assert opt.state.x.dtype == torch.bfloat16
+assert req["requested_on"].dtype == np.float32
+assert stochqn_tpu_torch.__version__ == "0.1.0"
+import shutil
+if shutil.which("g++"):
+    nat = free.SQN_free(backend="native")
+    nat.run_optimizer(np.array([0.0, 1.0]), 0.1)
+    nat.update_gradient(np.array([0.5, -0.5]))
+    assert nat.run_optimizer(np.array([0.0, 1.0]), 0.1)["task"] == "calc_grad"
+    assert native_backend.native_available()
 assert schedules.step_size_sqrt(1.0, 3) == 0.5
 assert metrics.summarize_infos([200]) == {"no_problems_encountered": 1}
 assert len(list(data.rounds_of([[0.0]] * 4, 2))) == 2

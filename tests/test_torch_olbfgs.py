@@ -225,8 +225,8 @@ def test_olbfgs_free_arguments():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             oLBFGS_free()
-    with pytest.raises(NotImplementedError, match="ROADMAP A.16"):
-        oLBFGS_free(backend="native", device=CPU)
+    with pytest.raises(ValueError, match="backend='torch' only"):
+        oLBFGS_free(backend="native", pairs_bf16=True)
     opt = oLBFGS_free(pairs_bf16=True, pairs_interleaved=True, device=CPU)
     opt.run_optimizer(np.zeros(3), 0.1)
     assert opt.state.mem.sy.dtype == torch.bfloat16
@@ -270,7 +270,7 @@ def test_converted_jax_state_continues_identically(at_section, interleaved):
         jopt.update_gradient(_grad(problem, req["requested_on"], b, (), 0))
         req = jopt.run_optimizer(x, eta)
     jst = jopt.state
-    tst = olbfgs_state_from_numpy(jax_fields(jst))
+    tst = olbfgs_state_from_numpy(jax_fields(jst), device="cpu")
     assert isinstance(tst, OLBFGSState)
     assert isinstance(tst.mem, BFGSMemoryInterleaved) == interleaved
     task = req["task"]
@@ -411,7 +411,7 @@ def test_fused_olbfgs_carry_over_from_jax(layout):
     run = jtr.jit_epochs()
     data_j = (jnp.asarray(X), jnp.asarray(Y))
     jst, _ = run(jst, data_j, jnp.asarray([ETA]), nepochs=1)
-    tst = olbfgs_state_from_numpy(jax_fields(jst))
+    tst = olbfgs_state_from_numpy(jax_fields(jst), device="cpu")
     _assert_olbfgs_close(tst, jst, "float64")
     jst, jinfos = run(jst, data_j, jnp.asarray([ETA] * 2), nepochs=2)
     tst, tinfos = ttr.epochs(tst, (torch.from_numpy(X), torch.from_numpy(Y)),
@@ -484,8 +484,11 @@ def test_trainer_checks_the_config():
     trainer = FusedTrainer("oLBFGS", OLBFGSConfig.create(pairs_bf16=True),
                            _torch_grad)
     assert trainer.init(torch.zeros(3)).mem.s.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="pairs_bf16"):
-        trainer.init(torch.zeros(3, dtype=torch.bfloat16))
+    st = trainer.init(torch.zeros(3, dtype=torch.bfloat16))
+    assert st.x.dtype == st.grad_prev.dtype == torch.bfloat16
+    assert st.mem.gram.dtype == torch.float32
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        trainer.init(torch.zeros(3, dtype=torch.float16))
 
 
 # --- ROADMAP queue C -------------------------------------------------------

@@ -131,7 +131,7 @@ def test_conditional_flush_matches_jax(pred):
         jmem, _ = jpairs.commit_pair(jmem.replace(s_pending=jnp.asarray(s)),
                                      jnp.asarray(y), 1e-4, 0.0,
                                      direction_cache=True)
-    tmem = bfgs_memory_from_numpy(_jax_fields(jmem))
+    tmem = bfgs_memory_from_numpy(_jax_fields(jmem), device="cpu")
     jout = jpairs.conditional_flush(jmem, jnp.asarray(pred))
     tout = pairs.conditional_flush(tmem, torch.tensor(pred))
     _assert_mem_close(tout, jout)

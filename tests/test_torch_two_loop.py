@@ -51,7 +51,8 @@ def _jax_mem(n_commits, flush=False, direction_cache=True):
 
 def _to_torch(mem):
     return bfgs_memory_from_numpy({f.name: np.asarray(getattr(mem, f.name))
-                                   for f in dataclasses.fields(mem)})
+                                   for f in dataclasses.fields(mem)},
+                                  device="cpu")
 
 
 @pytest.mark.parametrize("n_commits", [1, 3, 4, 6])   # 6 overfills the ring
