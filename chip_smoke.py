@@ -186,6 +186,27 @@ Phases (each failure raises and exits non-zero; nothing is caught):
     loss gate), and the host wall per ``run_optimizer`` call of the native
     core and the card's backend, in turns.
 
+22. The single-dispatch programs (``jit_epochs`` and the others: each
+    epoch one replay of a CUDA graph) at the same shape, each against the
+    eager ``epochs`` from one numpy ``x0``, every tensor of the state and
+    every info code the same bits, the eager run's kernel launches equal
+    to the replays' and nothing else launched but each graph's warm-up
+    epoch: (a) fused SQN for 20 epochs (the JAX loss after 2 on the
+    cached graph); (b) oLBFGS in block and interleaved shift layout (its
+    output buffer copied back each replay), the JAX losses; (c) adaQN's
+    kernel route (``project_adaqn`` captured) and matvec route, and in
+    float64 the JAX codes and loss within ``F64_RTOL``; each timed against
+    the eager loop in turns from fresh states, with the call's peak
+    memory, the device's idle share and the kernel's launches by name in
+    a profiler trace of the replays; (d) ``jit_epochs_scheduled`` on phase
+    17's schedule against the eager ``epochs_scheduled`` and the JAX loss,
+    a second call at another step on the cached graph, ``donate`` False
+    (the input unchanged) and True (the graph's own buffers back, passed
+    in again without a copy); (e) phase 18's model and guided fused fits
+    each replayed a graph for their 2 epochs; (f) a trainer on a CUDA mesh
+    (NCCL, one rank): ``jit_epochs()`` raises.  It prints a ``graphs:``
+    line of its records.
+
 The last two lines are the kernels' JSON record and the contract line
 ``{"ok": true, "device": {...}}``; the card's ``nvidia-smi`` line is
 printed before them.
@@ -211,7 +232,8 @@ import torch  # noqa: E402
 from stochqn_tpu_torch import (AdaQNConfig, FusedTrainer,  # noqa: E402
                                OLBFGS, OLBFGSConfig, SQN, SQN_free, SQNConfig,
                                StochasticLogisticRegression, adaQN_free,
-                               load_state, minimize, oLBFGS_free, save_state)
+                               graphs, load_state, minimize, oLBFGS_free,
+                               save_state)
 from stochqn_tpu_torch.core.state import (BFGSMemory,  # noqa: E402
                                           BFGSMemoryInterleaved,
                                           SHIFT_MAX_BYTES)
@@ -2582,11 +2604,16 @@ def drivers_phase(dev):
     state = trainer.init(x0)
     torch.cuda.synchronize()
     reset_launches()
+    graphs.reset_stats()
     with host_reads() as reads:
         state, infos = trainer.run_epochs(state, data, 2, STEP,
                                           decr_step_size=step_size_sqrt,
                                           shuffle=gen)
     launches["run_epochs"] = read_launches()[chosen]
+    # run_epochs is jit_epoch's program: one warm-up epoch before its
+    # capture, then one replay per epoch
+    warm = graph_launches("warm_launches")[chosen]
+    replayed = graph_launches("replay_launches")[chosen]
     drawn = torch.stack([torch.randperm(rows, generator=twin, device=dev)
                          for _ in range(2)])
     etas2 = torch.tensor([step_size_sqrt(STEP, e) for e in range(2)],
@@ -2598,10 +2625,13 @@ def drivers_phase(dev):
           f"run_epochs with a shuffle: {len(reads)} host sync in 2 epochs, "
           "the one read of niter before the first"
           + (f" ({reads[0][:80]})" if reads else ""))
-    check(launches["run_epochs"] == 2 * NUM_BATCHES and torch.equal(
-        infos, infos2) and same_state(state, st2),
-          f"run_epochs(shuffle=generator): {chosen} launched "
-          f"{launches['run_epochs']} times; the same bits as epochs_scheduled "
+    check(replayed == 2 * NUM_BATCHES and warm == NUM_BATCHES
+          and launches["run_epochs"] == replayed + warm
+          and graphs.STATS["replays"] == 2 and torch.equal(infos, infos2)
+          and same_state(state, st2),
+          f"run_epochs(shuffle=generator), 2 replays of a CUDA graph: "
+          f"{chosen} launched {replayed} times by the replays and {warm} by "
+          f"the warm-up epoch; the same bits as the eager epochs_scheduled "
           "on the permutations it drew")
 
     # stream_rounds from numpy minibatches through prefetch_to_device
@@ -2730,45 +2760,78 @@ def guided_callables(dev):
 @contextlib.contextmanager
 def epochs_without_host_sync():
     """Every epoch a fused driver runs inside (``FusedTrainer._epoch_at``,
-    which ``epoch``, ``epochs`` and ``epochs_scheduled`` all call) runs
-    under sync debug mode "error": a host sync inside an epoch raises.
-    Yields the list of epochs run."""
-    orig = FusedTrainer._epoch_at
+    which ``epoch``, ``epochs`` and ``epochs_scheduled`` call, and which
+    a CUDA graph's warm-up and capture run; and every replay of a graph)
+    runs under sync debug mode "error": a host sync inside an epoch
+    raises.  Yields the list of epochs run (eager, warm-up and capture
+    runs as the optimizer's name, replays as "replay")."""
+    orig, orig_replay = FusedTrainer._epoch_at, graphs._Graph.replay
     seen = []
 
-    def epoch_at(self, *args, **kw):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            out = orig(self, *args, **kw)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        seen.append(self.optimizer)
-        return out
-    FusedTrainer._epoch_at = epoch_at
+    def guarded(fn, name):
+        def run(self, *args, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fn(self, *args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            seen.append(name or self.optimizer)
+            return out
+        return run
+    FusedTrainer._epoch_at = guarded(orig, None)
+    graphs._Graph.replay = guarded(orig_replay, "replay")
     try:
         yield seen
     finally:
-        FusedTrainer._epoch_at = orig
+        FusedTrainer._epoch_at, graphs._Graph.replay = orig, orig_replay
+
+
+# The kernels' launch counters (ops.kernels.two_loop_kernel) by kernel, and
+# each kernel's function name in a profiler trace.
+COUNTER = {"direction_streamed": "LAUNCHES", "direction": "DIRECTION_LAUNCHES",
+           "project": "PROJECT_LAUNCHES",
+           "project_adaqn": "PROJECT_ADAQN_LAUNCHES"}
+SYMBOL = {"direction_streamed": "direction_parked",
+          "direction": "direction_one_read", "project": "project_partials",
+          "project_adaqn": "adaqn_partials"}
+# The graph statistics (graphs.STATS) of each path driven() drove, by its
+# label.
+DRIVEN_GRAPHS = {}
+
+
+def graph_launches(kind):
+    """The launches of each kernel that graphs.STATS holds under ``kind``
+    (``warm_launches`` or ``replay_launches``)."""
+    return {name: graphs.STATS[kind].get(c, 0) for name, c in COUNTER.items()}
 
 
 def driven(what, fn, kernel, launches, no_sync=True):
     """Drive one path with every count at 0 and the plain versions spied
-    on: ``fn()`` must launch ``kernel`` ``launches`` times (no kernel when
-    ``kernel`` is None), no other kernel and no plain version.  Returns
-    ``fn()``'s value and the counts read just after."""
+    on: ``fn()`` must launch ``kernel`` ``launches`` times in its epochs,
+    eager or replayed (no kernel when ``kernel`` is None), plus what the
+    warm-up epoch of each CUDA graph it captured launched, no other
+    kernel and no plain version.  Returns ``fn()``'s value and the
+    kernel's count read just after (warm-up launches included)."""
     torch.cuda.synchronize()
     calls, restore = spy_plain()
     reset_launches()
+    graphs.reset_stats()
     with (epochs_without_host_sync() if no_sync
           else contextlib.nullcontext()) as epochs:
         out = fn()
     counts = read_launches()
     restore()
+    DRIVEN_GRAPHS[what] = dict(graphs.STATS)
+    warm = graph_launches("warm_launches")
     got = counts.pop(kernel) if kernel is not None else 0
-    check(got == launches and not any(counts.values()) and not calls,
-          f"{what}: {kernel} launched {got} times (want {launches}), "
-          f"other kernels {counts}, plain versions {len(calls)}"
-          + (f", {len(epochs)} epochs with no host sync" if no_sync else ""))
+    want = launches + (warm[kernel] if kernel is not None else 0)
+    check(got == want and not any(counts.values()) and not calls,
+          f"{what}: {kernel} launched {got} times (want {launches} in the "
+          f"epochs + {want - launches} by the warm-up epochs of "
+          f"{graphs.STATS['captures']} CUDA graphs), other kernels "
+          f"{counts}, plain versions {len(calls)}"
+          + (f", {len(epochs)} epoch runs with no host sync "
+             f"({epochs.count('replay')} replays)" if no_sync else ""))
     return out, got
 
 
@@ -3004,23 +3067,39 @@ def front_end_phase(dev):
 
 @contextlib.contextmanager
 def epoch_walls():
-    """Host wall of every epoch a fused driver runs inside, synchronized
-    before and after (one sync per epoch of 120 steps)."""
-    orig = FusedTrainer._epoch_at
-    walls = []
+    """Host wall of every epoch a fused driver runs, synchronized before
+    and after (one sync per epoch of 120 steps): each eager epoch and each
+    replay of a CUDA graph; a graph's warm-up and capture are not epochs
+    of the fit and are not timed."""
+    orig, orig_init = FusedTrainer._epoch_at, graphs._Graph.__init__
+    orig_replay = graphs._Graph.replay
+    walls, building = [], []
 
-    def epoch_at(self, *args, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = orig(self, *args, **kw)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        return out
-    FusedTrainer._epoch_at = epoch_at
+    def timed(fn):
+        def run(self, *args, **kw):
+            if building:
+                return fn(self, *args, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, *args, **kw)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def init(self, *args, **kw):
+        building.append(self)
+        try:
+            orig_init(self, *args, **kw)
+        finally:
+            building.pop()
+    FusedTrainer._epoch_at = timed(orig)
+    graphs._Graph.__init__, graphs._Graph.replay = init, timed(orig_replay)
     try:
         yield walls
     finally:
         FusedTrainer._epoch_at = orig
+        graphs._Graph.__init__, graphs._Graph.replay = orig_init, orig_replay
 
 
 def front_end_times(dev):
@@ -3772,6 +3851,349 @@ def native_phase(dev):
     return dict(run_optimizer_ms=med, turns=walls)
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the single-dispatch programs.  FusedTrainer.jit_epochs and the
+# others capture an epoch in a CUDA graph and replay it; the eager epochs
+# run the same ops one dispatch at a time, so the two must give the same
+# bits (the graph reads the same inputs from its own buffers, and the
+# cooperative and programmatic dependent launches of the kernels capture
+# as they are).  The eager oLBFGS and adaQN loops run 250-650 iters/s, so
+# their runs are shorter than SQN's 20 epochs.
+GRAPH_EPOCHS = {"sqn": 20, "olbfgs": 4, "adaqn": 2}
+TIMED_EPOCHS = {"sqn": 20, "olbfgs": 2, "adaqn": 4}
+
+
+def graph_vs_eager(what, make, x0, data, step, nepochs, kernel):
+    """``make()``'s ``jit_epochs`` against another ``make()``'s eager
+    ``epochs`` for ``nepochs`` aligned epochs from ``x0``: every tensor of
+    the state and every info code the same bits, the eager run's kernel
+    launches equal to those the replays count, and no other launch but
+    the graph's warm-up epoch.  Returns the two trainers, the graph's
+    state and its record (launches, capture and warm-up seconds, bytes
+    copied per replay)."""
+    eager, graphed = make(), make()
+    torch.cuda.synchronize()
+    reset_launches()
+    ref, ref_infos = eager.epochs(eager.init(x0), data, step, nepochs,
+                                  aligned=True)
+    torch.cuda.synchronize()
+    eager_counts = read_launches()
+    reset_launches()
+    graphs.reset_stats()
+    s0 = graphed.init(x0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st, infos = graphed.jit_epochs()(s0, data, step, nepochs, aligned=True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    first_peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    held = (torch.cuda.memory_allocated() - base) / 2**20
+    counts = read_launches()
+    replayed = graph_launches("replay_launches")
+    warm = graph_launches("warm_launches")
+    (g,) = graphed._programs.graphs()
+    check(torch.equal(infos, ref_infos) and same_state(st, ref),
+          f"{what}: {nepochs} replays of one CUDA graph and {nepochs} eager "
+          "epochs give the same bits in every tensor of the state and every "
+          "info code")
+    want = nepochs * NUM_BATCHES if kernel is not None else 0
+    check(replayed == eager_counts and all(
+        counts[k] == replayed[k] + warm[k] for k in counts)
+          and sum(eager_counts.values()) == want
+          and (kernel is None or eager_counts[kernel] == want),
+          f"{what}: launches counted for the replays {replayed} = the eager "
+          f"run's {eager_counts}; the warm-up epoch's {warm}")
+    print(f"  {what}: first call {first_s:.3f} s for {nepochs} epochs: "
+          f"warm-up epoch {g.warm_s:.3f} s, capture and instantiate "
+          f"{g.capture_s:.3f} s; peak device memory {first_peak:.1f} MiB "
+          f"over what was allocated before it, {held:.1f} MiB still held "
+          "after it (the graph's buffers and pool, the returned state); the "
+          f"graph copies {g.copy_bytes} bytes of its output state back into "
+          "its buffers per replay", flush=True)
+    rec = dict(launches=counts.get(kernel, 0) if kernel else 0,
+               replay_launches=replayed.get(kernel, 0) if kernel else 0,
+               warm_s=g.warm_s, capture_s=g.capture_s,
+               first_call_s=first_s, first_call_peak_extra_mib=first_peak,
+               held_after_first_call_mib=held,
+               copy_back_bytes_per_replay=g.copy_bytes,
+               captured_launches=g.launches)
+    return eager, graphed, st, infos, rec
+
+
+def graph_times(what, eager, graphed, x0, data, step, nepochs, kernel=None):
+    """Host wall of ``nepochs`` aligned epochs each way, eager and graph,
+    in turns (eager, graph, graph, eager, eager, graph), each from a
+    fresh state, with the peak device memory the call adds; then the
+    idle share of a call of one epoch each way (busy time from a profiler
+    trace against the wall of the same call without it: a trace of
+    thousands of eager steps takes the profiler tens of seconds to
+    read) and, for ``kernel``, its launches by name in the trace of the
+    graph's call, one replay."""
+    runs = {"eager": lambda s: eager.epochs(s, data, step, nepochs,
+                                            aligned=True),
+            "graph": lambda s: graphed.jit_epochs()(s, data, step, nepochs,
+                                                    aligned=True)}
+    fresh = {"eager": lambda: eager.init(x0), "graph": lambda: graphed.init(x0)}
+    rates = {k: [] for k in runs}
+    peak = {k: 0 for k in runs}
+    for name in ("eager", "graph", "graph", "eager", "eager", "graph"):
+        s = fresh[name]()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = runs[name](s)
+        torch.cuda.synchronize()
+        rates[name].append(nepochs * NUM_BATCHES / (time.perf_counter() - t0))
+        peak[name] = max(peak[name], torch.cuda.max_memory_allocated() - base)
+        del out, s
+    ips = {k: statistics.median(v) for k, v in rates.items()}
+    from torch.profiler import ProfilerActivity, profile
+    one = {"eager": lambda s: eager.epochs(s, data, step, 1, aligned=True),
+           "graph": lambda s: graphed.jit_epochs()(s, data, step, 1,
+                                                   aligned=True)}
+    idle, traced = {}, None
+    for name in runs:
+        s = fresh[name]()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            one[name](s)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        busy = sum(getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0))
+                   for e in events) / 1e3
+        if name == "graph" and kernel is not None:
+            traced = sum(e.count for e in events if SYMBOL[kernel] in e.key)
+        s = fresh[name]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one[name](s)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        idle[name] = None if busy <= 0 else 1 - busy / wall
+    for name in runs:
+        print(f"  {what}, {name}: {nepochs} epochs from a fresh state (in "
+              f"turns): {', '.join(f'{v:.1f}' for v in rates[name])} "
+              f"iters/s; median {ips[name]:.1f}; the call's peak device "
+              f"memory {peak[name] / 2**20:.1f} MiB over what was allocated "
+              "before it; device idle over a call of one epoch "
+              + ("not measured (the trace shows no device time)"
+                 if idle[name] is None else f"{100 * idle[name]:.1f}%"),
+              flush=True)
+    if kernel is not None:
+        if traced:
+            check(traced == NUM_BATCHES,
+                  f"{what}: the profiler trace of one replay names "
+                  f"{SYMBOL[kernel]} {traced} times (want {NUM_BATCHES})")
+        else:
+            print(f"  {what}: the profiler trace of the replays names no "
+                  f"{SYMBOL[kernel]}: not cross-checked", flush=True)
+    return dict(iters_per_s=ips, iters_per_s_all=rates, idle_share=idle,
+                peak_extra_mib={k: v / 2**20 for k, v in peak.items()},
+                traced_kernel_launches=traced)
+
+
+def graphs_phase(dev, front):
+    phase("22. single-dispatch programs: jit_epochs / jit_epochs_scheduled as "
+          "CUDA graphs at BibTeX shape, against the eager epochs")
+    t_phase = time.perf_counter()
+    X, Y, x0 = bench_data(dev)
+    Xf, Yf = X.reshape(-1, N_FEATURES), Y.reshape(-1, N_CLASSES)
+    data = (X, Y)
+    x0n = x0.cpu().numpy()          # one numpy x0 for every run
+
+    def full_loss(x):
+        return float(losses.multinomial_logistic_loss(
+            x, Xf.to(x.dtype), Yf.to(x.dtype), None, REG))
+    chosen, _ = gate_choice(MEM_SIZE, N_FLAGSHIP, dev)
+    out = {"launches": {}, "runs": {}}
+    plain_calls, restore_plain = spy_plain()
+
+    def clock(part):
+        print(f"  [{part} at {time.perf_counter() - t_phase:.1f} s]",
+              flush=True)
+
+    # (a) SQN flagship
+    n = GRAPH_EPOCHS["sqn"]
+    eager, graphed, st, _, rec = graph_vs_eager(
+        "(a) SQN flagship", sqn_trainer, x0n, data, STEP, n, chosen)
+    print(f"  (a) loss after {n} epochs {full_loss(st.x):.4f}", flush=True)
+    st2, infos2 = graphed.jit_epochs()(graphed.init(x0n), data, STEP, 2,
+                                       aligned=True)
+    check(len(graphed._programs.graphs()) == 1
+          and set(infos2.flatten().tolist()) == {200},
+          "(a) 2 epochs on the cached graph: no new capture, all codes 200")
+    loss_gate("(a) SQN on the graph, 2 epochs", full_loss(st2.x),
+              JAX_LOSS_2_EPOCHS, LOSS_RTOL)
+    rec.update(graph_times("(a) SQN flagship", eager, graphed, x0n, data,
+                           STEP, TIMED_EPOCHS["sqn"], chosen))
+    out["runs"]["sqn"] = rec
+    out["launches"]["graph_fused_sqn"] = rec["launches"]
+
+    # (b) oLBFGS, block and interleaved (shift mode)
+    clock("(b)")
+    for layout in ("block", "interleaved"):
+        def make(layout=layout):
+            return FusedTrainer("oLBFGS", OLBFGSConfig.create(
+                mem_size=MEM_SIZE, pairs_interleaved=layout == "interleaved"),
+                grad_fn)
+        what = f"(b) oLBFGS {layout}"
+        eager, graphed, st, _, rec = graph_vs_eager(
+            what, make, x0n, data, STEP, GRAPH_EPOCHS["olbfgs"], None)
+        if layout == "interleaved":
+            check(st.mem.shift and rec["copy_back_bytes_per_replay"]
+                  >= st.mem.sy.nbytes,
+                  f"{what}: shift mode, whose commit builds a new [2m, n] "
+                  "buffer each step: the replay copies it back "
+                  f"({st.mem.sy.nbytes} bytes of pairs)")
+        st2, _ = graphed.jit_epochs()(graphed.init(x0n), data, STEP, 2,
+                                      aligned=True)
+        loss_gate(f"{what} on the graph, 2 epochs", full_loss(st2.x),
+                  JAX_OLBFGS_LOSS[layout], LOSS_RTOL)
+        rec.update(graph_times(what, eager, graphed, x0n, data, STEP,
+                               TIMED_EPOCHS["olbfgs"]))
+        out["runs"][f"olbfgs_{layout}"] = rec
+
+    # (c) adaQN fisher: the kernel route (project_adaqn captured) and the
+    clock("(c)")
+    # matvec route; float64 against the JAX float64 run
+    for route, use_pallas in (("kernel", True), ("matvec", None)):
+        def make(use_pallas=use_pallas):
+            return FusedTrainer("adaQN", AdaQNConfig.create(
+                **ADAQN_KW, use_pallas=use_pallas), grad_fn, obj_fn=obj_fn)
+        what = f"(c) adaQN {route} route"
+        eager, graphed, st, _, rec = graph_vs_eager(
+            what, make, x0n, data, ADAQN_STEP, GRAPH_EPOCHS["adaqn"],
+            "project_adaqn" if use_pallas else None)
+        if use_pallas:
+            out["launches"]["graph_fused_adaqn"] = rec["launches"]
+        rec.update(graph_times(what, eager, graphed, x0n, data, ADAQN_STEP,
+                               TIMED_EPOCHS["adaqn"],
+                               "project_adaqn" if use_pallas else None))
+        out["runs"][f"adaqn_{route}"] = rec
+    X64, Y64 = X.double(), Y.double()
+
+    def make64():
+        return FusedTrainer("adaQN", AdaQNConfig.create(**ADAQN_KW), grad_fn,
+                            obj_fn=obj_fn)
+    _, _, st, infos, _ = graph_vs_eager(
+        "(c) adaQN float64", make64, x0.double(), (X64, Y64), ADAQN_STEP, 2,
+        None)
+    binfos = infos.flatten().tolist()[UPD_FREQ - 1::UPD_FREQ]
+    rel64 = abs(full_loss(st.x) - JAX_F64_LOSS) / JAX_F64_LOSS
+    check(binfos == JAX_ADAQN_BOUNDARY_INFOS and rel64 <= F64_RTOL,
+          f"(c) adaQN float64 on the graph: boundary codes the JAX "
+          f"package's, the loss after 2 epochs {rel64:.3e} from the JAX "
+          f"float64 run (<= {F64_RTOL})")
+
+    # (d) the schedule, another step on a cached graph, donate
+    clock("(d)")
+    rows = NUM_BATCHES * BATCH_SIZE
+    rng = np.random.default_rng(2)
+    orders = torch.from_numpy(np.stack([rng.permutation(rows)
+                                        for _ in range(3)])).to(dev)
+    etas = torch.tensor([step_size_sqrt(STEP, e) for e in range(3)],
+                        dtype=torch.float32, device=dev)
+    eager, graphed = sqn_trainer(), sqn_trainer()
+    ref, ref_infos = eager.epochs_scheduled(eager.init(x0n), (Xf, Yf), etas,
+                                            orders, BATCH_SIZE, aligned=True)
+    reset_launches()
+    graphs.reset_stats()
+    st, infos = graphed.jit_epochs_scheduled()(
+        graphed.init(x0n), (Xf, Yf), etas, orders, BATCH_SIZE, aligned=True)
+    torch.cuda.synchronize()
+    out["launches"]["graph_fused_sqn_scheduled"] = read_launches()[chosen]
+    check(torch.equal(infos, ref_infos) and same_state(st, ref)
+          and graphs.STATS["replays"] == 3,
+          "(d) jit_epochs_scheduled, 3 epochs in 3 replays (the gather "
+          "inside the graph, each epoch's order and step copied in): the "
+          "eager epochs_scheduled's bits")
+    replayed = graph_launches("replay_launches")[chosen]
+    check(replayed == 3 * NUM_BATCHES,
+          f"(d) {chosen} counted {replayed} times for the 3 replays, once a "
+          "step")
+    loss_gate("(d) jit_epochs_scheduled, 3 epochs", full_loss(st.x),
+              JAX_SCHEDULED_LOSS, LOSS_RTOL)
+    eager, graphed = sqn_trainer(), sqn_trainer()
+    fn = graphed.jit_epochs()
+    st = fn(graphed.init(x0n), data, STEP, 1, aligned=True)[0]
+    before = graphs.copy_tree(st)
+    st2, infos = fn(st, data, STEP / 2, 1, aligned=True)
+    ref = eager.epochs(eager.init(x0n), data, STEP, 1, aligned=True)[0]
+    ref, ref_infos = eager.epochs(ref, data, STEP / 2, 1, aligned=True)
+    check(len(graphed._programs.graphs()) == 1 and torch.equal(
+        infos, ref_infos) and same_state(st2, ref) and same_state(st, before),
+          "(d) a second call at half the step replays the cached graph and "
+          "gives the eager bits at that step; donate=False: the state "
+          "passed in is unchanged")
+    donor = sqn_trainer()
+    donor.donate = True
+    s0 = donor.init(x0n)
+    d1, _ = donor.jit_epochs()(s0, data, STEP, 1, aligned=True)
+    (fam,) = donor._programs.families.values()
+    copied = fam.copy_in_bytes
+    d2, infos = donor.jit_epochs()(d1, data, STEP / 2, 1, aligned=True)
+    check(all(a is b for a, b in zip(graphs.flatten(d2)[0], fam.state))
+          and fam.copy_in_bytes == copied and torch.equal(infos, ref_infos)
+          and same_state(d2, ref),
+          "(d) donate=True: the result is the graph's own buffers, passed "
+          "back without a copy, with the same bits")
+    del fam, d1, d2, s0
+
+    # (e) the front ends on the graph (phase 18)
+    clock("(e)")
+    for what, key in (("(a) StochasticLogisticRegression SQN fused",
+                       "logistic_fused_sqn"),
+                      ("(c) guided SQN, fused engine, 2 epochs",
+                       "guided_fused_sqn"),
+                      ("(d) StochasticLogisticRegression adaQN fused, "
+                       "use_pallas=True", "logistic_fused_adaqn"),
+                      ("(g) minimize(SQN) from a numpy x0", "minimize_sqn")):
+        g = DRIVEN_GRAPHS[what]
+        check(g["captures"] >= 1 and g["replays"] == 2,
+              f"(e) phase 18 {what}: {g['captures']} CUDA graph captured, "
+              f"{g['replays']} replays for its 2 epochs, held to the JAX "
+              "loss there")
+    fit, bare = (front["iters_per_s"]["logistic_fit"],
+                 front["iters_per_s"]["bare_model_functions"])
+    print(f"  (e) phase 18 (j), in turns: the model's fit on the graph "
+          f"{fit['epochs']:.1f} iters/s over its replays, {fit['call']:.1f} "
+          f"the whole fit (a new trainer each fit: warm-up and capture "
+          f"included); bare eager FusedTrainer with the model's functions "
+          f"{bare['epochs']:.1f} (its epochs) and {bare['call']:.1f} (the "
+          "call)", flush=True)
+
+    # (f) a CUDA trainer with a mesh: jit_* raises, naming epochs()
+    clock("(f)")
+    import tempfile
+    from stochqn_tpu_torch.parallel import make_mesh
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.distributed.init_process_group(
+            "nccl", init_method="file://" + os.path.join(tmp, "rdv"),
+            world_size=1, rank=0)
+        try:
+            tr = FusedTrainer("SQN", sqn_cfg(), grad_fn, mesh=make_mesh(1, 1))
+            try:
+                tr.jit_epochs()
+                raised = None
+            except RuntimeError as err:
+                raised = str(err)
+        finally:
+            torch.distributed.destroy_process_group()
+    check(raised is not None and "epochs()" in raised,
+          f"(f) FusedTrainer on a CUDA mesh: jit_epochs() raises: {raised}")
+    check(not plain_calls, f"no plain version was called ({len(plain_calls)})")
+    restore_plain()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 22 took {out['seconds']:.1f} s", flush=True)
+    print("graphs: " + json.dumps(out["runs"]), flush=True)
+    return out
+
+
 def check_no_spills(report):
     """ptxas's report of the build (``-Xptxas -v``): every kernel of the
     four sources is in it, and none spills a byte."""
@@ -3859,6 +4281,7 @@ def main():
     sharded = sharded_phase(dev, x_phase4)
     bf16_iterate = bf16_iterate_phase(dev)
     native = native_phase(dev)
+    programs = graphs_phase(dev, {"iters_per_s": front_ips})
 
     # launches: the counts of the paths driven above (fused SQN, fused adaQN,
     # free-mode SQN at m = 10 and m = 20, free-mode adaQN, fused SQN
@@ -3912,6 +4335,11 @@ def main():
         "dp_logistic_sqn_per_rank")})
     by_path["project_adaqn"]["dp_fused_adaqn_per_rank"] = \
         sl["dp_fused_adaqn_per_rank"]
+    # phase 22: the replays of the CUDA graphs and their warm-up epochs
+    gl = programs["launches"]
+    by_path[chosen].update({k: gl[k] for k in (
+        "graph_fused_sqn", "graph_fused_sqn_scheduled")})
+    by_path["project_adaqn"]["graph_fused_adaqn"] = gl["graph_fused_adaqn"]
     for name, launches in (("fused_sqn_bf16", bf16["launches"]["block"]),
                            ("fused_sqn_bf16_interleaved",
                             bf16["launches"]["interleaved"]),
@@ -3966,7 +4394,8 @@ def main():
                 "launches": sum(by_path[name].values()),
                 "launches_by_path": by_path[name],
                 "max_abs_err": max_abs_err, **times, **bound_keys, **more,
-                **({"front_end": front_end, "sharded": sharded_record}
+                **({"front_end": front_end, "sharded": sharded_record,
+                    "graphs": programs["runs"]}
                    if name == chosen else {})}
     # the parameter-sharded paths take the split route: no kernel
     sharded_record = {"param_sharded_paths_launch_none":

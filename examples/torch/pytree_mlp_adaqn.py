@@ -78,7 +78,8 @@ def main():
 
     print(f"initial loss: {float(loss_fn(params0, (x, y))):.4f}")
     for epoch in range(12):
-        # run_epochs consumes the state it is given: rebind to the result
+        # run_epochs returns the new state (on the card one CUDA-graph
+        # replay per epoch): rebind to it
         state, _ = trainer.run_epochs(state, data, 1, step_size=0.1)
         params = trainer.params(state)
         loss = float(loss_fn(params, (x, y)))

@@ -40,7 +40,11 @@ front ends, the collective recorder) with the sharded checkpoints
 surface: ``backend="native"`` in free mode (the C++ core of ``native/``
 through ``native_backend``), a bfloat16 iterate in every optimizer
 (SQN's collapsed direction on ``direction_streamed``), and
-``FisherMemory.append_block``.  ROADMAP.md lists what comes next.
+``FisherMemory.append_block``; and the JAX package's single-dispatch
+programs ``FusedTrainer.jit_epoch`` / ``jit_epochs`` /
+``jit_epochs_scheduled`` with its ``donate`` field, each epoch on the card
+one replay of a CUDA graph (``graphs``), which ``run_epochs`` and the
+front ends' fused fits now run on.  ROADMAP.md lists what comes next.
 """
 from stochqn_tpu_torch._version import __version__
 from stochqn_tpu_torch.api import MinimizeResult, minimize

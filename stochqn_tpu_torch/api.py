@@ -99,6 +99,7 @@ def minimize(loss_fn: Callable, x0, data, *, optimizer: str = "adaQN",
     # niter is counted here (a fresh state): no epoch waits for a read
     niter = 0
     num_batches = _first_leaf(data).shape[0]
+    epoch_fn = trainer.jit_epoch() if mesh is None else trainer.epoch
     for epoch in range(nepochs):
         eta = (step_size if decr_step_size is None
                else decr_step_size(step_size, epoch))
@@ -106,8 +107,8 @@ def minimize(loss_fn: Callable, x0, data, *, optimizer: str = "adaQN",
                                                              shuffle_key)
         if mesh is not None:                # this rank's rows
             d = shard_batches(d, mesh)
-        state, infos = trainer.epoch(state, d, eta,
-                                     aligned=niter % upd_freq == 0)
+        state, infos = epoch_fn(state, d, eta,
+                                aligned=niter % upd_freq == 0)
         niter += num_batches
         all_infos.append(infos)
         epochs_run += 1

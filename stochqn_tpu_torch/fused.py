@@ -38,11 +38,23 @@ accept/reject, flush and first-round decision is a device-side
 The state is updated in place where that saves copying the pair memory:
 a commit rewrites one ring row pair of ``mem.s`` / ``mem.y`` (or of an
 interleaved ring-mode ``mem.sy``; ``ops.pairs.commit_pair``), and a
-ring-mode Fisher append one row of ``fisher.f``.  A state passed to any
-driver (:meth:`FusedTrainer.round`, :meth:`~FusedTrainer.epoch`,
-:meth:`~FusedTrainer.epochs`, :meth:`~FusedTrainer.epochs_scheduled`,
-:meth:`~FusedTrainer.run_epochs`) is therefore consumed, as the JAX
-package's with ``donate=True``; use the returned one.
+ring-mode Fisher append one row of ``fisher.f``.  A state passed to an
+eager driver (:meth:`FusedTrainer.round`, :meth:`~FusedTrainer.epoch`,
+:meth:`~FusedTrainer.epochs`, :meth:`~FusedTrainer.epochs_scheduled`) is
+therefore consumed, as the JAX package's with ``donate=True``; use the
+returned one.  These have no JAX counterpart of their own: the JAX
+package jits ``epoch``.
+
+The JAX package's single-dispatch programs, :meth:`~FusedTrainer.
+jit_epoch`, :meth:`~FusedTrainer.jit_epochs` and
+:meth:`~FusedTrainer.jit_epochs_scheduled` (and
+:meth:`~FusedTrainer.run_epochs` on top of ``jit_epoch``), return
+callables with the JAX signatures.  On the card they capture the epoch in
+a CUDA graph and replay it (:mod:`stochqn_tpu_torch.graphs`); on the CPU
+they run the eager loop.  They follow ``FusedTrainer.donate``: by default
+the state passed in stays readable and unchanged, as the JAX package's
+without donation; with ``donate=True`` it is consumed and the result may
+share its buffers with the program.
 
 Batches are tensors or (nested) tuples, lists or dicts of tensors with a
 leading example axis, and epoch data has leaves ``[B, bs, ...]``.
@@ -71,6 +83,8 @@ from stochqn_tpu_torch.core.protocol import (cast_scalar, commit_info,
                                              no_bad, resolve_device,
                                              scalar_like, step_info)
 from stochqn_tpu_torch.core.state import AdaQNState, OLBFGSState, SQNState
+from stochqn_tpu_torch import graphs
+from stochqn_tpu_torch.graphs import EpochPrograms, copy_tree
 from stochqn_tpu_torch.models.losses import hvp_from_grad
 from stochqn_tpu_torch.ops.pairs import (commit_pair, conditional_flush,
                                          fisher_y)
@@ -414,6 +428,15 @@ class FusedTrainer:
         (functions that sum over their rows, nothing outside the sum) or
         ``"mean"`` (functions that average over their rows, everything
         inside the mean); see :mod:`stochqn_tpu_torch.parallel.evaluate`.
+      donate: whether the programs of :meth:`jit_epoch`,
+        :meth:`jit_epochs`, :meth:`jit_epochs_scheduled` and
+        :meth:`run_epochs` consume the state passed in, as the JAX
+        package's field.  Off (the default): that state stays readable and
+        unchanged, and each call returns a state of its own (on the card a
+        copy of the graph's buffers; on the CPU the eager loop runs on a
+        copy).  On: the state passed in is consumed, and on the card the
+        returned state is the graph's own buffers, which the next call
+        takes without a copy and overwrites.
     """
 
     optimizer: str
@@ -425,6 +448,18 @@ class FusedTrainer:
     paired_grads: bool = False
     mesh: Any = None
     reduction: str = "sum"
+    donate: bool = False
+
+    # the CUDA graphs and the cached jit_* callables (the JAX package's
+    # _epoch_jit and the others)
+    _programs: Any = dataclasses.field(default=None, init=False, repr=False,
+                                       compare=False)
+    _epoch_jit: Any = dataclasses.field(default=None, init=False, repr=False,
+                                        compare=False)
+    _epochs_jit: Any = dataclasses.field(default=None, init=False,
+                                         repr=False, compare=False)
+    _epochs_sched_jit: Any = dataclasses.field(default=None, init=False,
+                                               repr=False, compare=False)
 
     def __post_init__(self):
         kind = self.optimizer
@@ -572,6 +607,17 @@ class FusedTrainer:
             return 0
         return int(state.niter) % self.cfg.upd_freq
 
+    def _layout(self, num_batches: int, phase: int, generic: bool) -> tuple:
+        """``(generic, phase)`` of the epoch :meth:`_epoch_at` runs from
+        ``phase`` with ``generic`` asked: ``(False, 0)`` for the
+        round-chunked layout and for oLBFGS, ``(True, phase)`` for the
+        generic one.  A CUDA graph of the epoch is keyed by it."""
+        if self.optimizer == "oLBFGS":
+            return False, 0
+        if generic or phase != 0 or num_batches % self.cfg.upd_freq != 0:
+            return True, phase
+        return False, 0
+
     def _epoch_at(self, state, data, step_size, phase: int, generic: bool):
         """One epoch starting ``phase`` steps into a round: for SQN and
         adaQN round-chunked where the layout allows it and ``generic`` is
@@ -653,21 +699,13 @@ class FusedTrainer:
         :meth:`epoch`.  Keep ``orders`` and ``step_sizes`` on the state's
         device: copying them there from the host waits for the device.
         Returns ``(state, infos[nepochs, B])``."""
-        orders = torch.as_tensor(orders, device=_first_leaf(flat_data).device)
-        nepochs, rows = orders.shape
-        if rows % batch_size:
-            raise ValueError(
-                f"orders.shape[1]={rows} must be a multiple of "
-                f"batch_size={batch_size} (each epoch row lists exactly the "
-                "gathered batch rows)")
-        nbatch = rows // batch_size
+        orders = _orders(flat_data, orders, batch_size)
+        nepochs = orders.shape[0]
         steps = torch.broadcast_to(step_like(step_sizes, state.x),
                                    (nepochs,))
 
         def gathered(e):
-            return self._local(_tree_map(
-                lambda a: a.index_select(0, orders[e]).reshape(
-                    (nbatch, batch_size) + tuple(a.shape[1:])), flat_data))
+            return self._local(_gather(flat_data, orders[e], batch_size))
         return self._drive(state, (gathered(e) for e in range(nepochs)),
                            steps, aligned)
 
@@ -675,18 +713,16 @@ class FusedTrainer:
                    decr_step_size=None, shuffle=None
                    ) -> Tuple[Any, torch.Tensor]:
         """Host loop over epochs of pre-batched ``data`` (leaves
-        ``[B, bs, ...]``).  ``decr_step_size(step0, epoch)`` gives each
-        epoch's step size, as the guided schedule hook does.  ``shuffle``,
-        a ``torch.Generator`` on the data's device, reshuffles the rows of
-        the whole epoch before each epoch (:func:`shuffle_batched`, from
-        the unshuffled ``data`` every time).  ``niter`` is read once, before
-        the first epoch, and the host count then advances by ``B`` per
-        epoch, so any start, mid-round included, takes its boundaries
-        where the JAX package's do.
-
-        The passed-in ``state`` is consumed, as the JAX package's with
-        ``donate=True``; the JAX package's ``run_epochs`` keeps it by
-        default."""
+        ``[B, bs, ...]``), each epoch the program of :meth:`jit_epoch`.
+        ``decr_step_size(step0, epoch)`` gives each epoch's step size, as
+        the guided schedule hook does.  ``shuffle``, a ``torch.Generator``
+        on the data's device, reshuffles the rows of the whole epoch before
+        each epoch (:func:`shuffle_batched`, from the unshuffled ``data``
+        every time).  ``niter`` is read once, before the first epoch, and
+        the host count then advances by ``B`` per epoch, so any start,
+        mid-round included, takes its boundaries where the JAX package's
+        do.  The state passed in is consumed only with ``donate=True``, as
+        in the JAX package; on a CUDA mesh the epochs run eagerly."""
         local = self._local(data) if shuffle is None else None
 
         def epoch_data():
@@ -694,9 +730,128 @@ class FusedTrainer:
                 yield local if shuffle is None else self._local(
                     shuffle_batched(data, shuffle))
         steps = [step_like(step_size if decr_step_size is None
-                             else decr_step_size(step_size, e), state.x)
+                           else decr_step_size(step_size, e), state.x)
                  for e in range(nepochs)]
-        return self._drive(state, epoch_data(), steps, None)
+        return self._program(state, epoch_data(), nepochs, steps,
+                             _first_leaf(data).shape[0], None)
+
+    # -- the JAX package's single-dispatch programs ------------------------ #
+    def _no_cuda_mesh(self, what: str) -> None:
+        if self.mesh is not None and self.mesh.device_type != "cpu":
+            raise RuntimeError(
+                f"{what}: a program is captured in a CUDA graph, and a "
+                "mesh's collectives on the card cannot be captured; on a "
+                "mesh call the eager epoch() / epochs() / "
+                "epochs_scheduled()")
+
+    def _program(self, state, epoch_inputs, nepochs: int, steps, num_batches,
+                 aligned, scheduled: Optional[int] = None):
+        """``nepochs`` epochs through the CUDA graphs where the state is on
+        the card and there is no mesh, else the eager loop (on a copy of
+        the state unless ``donate``).  ``epoch_inputs`` yields each epoch's
+        batched data or, for a schedule (``scheduled`` the batch size),
+        ``(flat_data, order)``."""
+        if not graphs.captures(state) or self.mesh is not None:
+            if not self.donate:
+                state = copy_tree(state)
+            if scheduled is not None:
+                epoch_inputs = (self._local(_gather(fd, order, scheduled))
+                                for fd, order in epoch_inputs)
+            return self._drive(state, epoch_inputs, steps, aligned)
+        if self._programs is None:
+            self._programs = EpochPrograms(self)
+        if scheduled is None:
+            def epoch(st, data, eta, layout):
+                return self._epoch_at(st, data, eta, layout[1], layout[0])
+        else:
+            def epoch(st, inputs, eta, layout):
+                data = _gather(inputs[0], inputs[1], scheduled)
+                return self._epoch_at(st, data, eta, layout[1], layout[0])
+        return self._programs.drive(
+            "batched" if scheduled is None else "scheduled", state,
+            epoch_inputs, nepochs, steps, num_batches, aligned, self.donate,
+            epoch, static=() if scheduled is None else (scheduled,))
+
+    def jit_epoch(self):
+        """The cached single-epoch program: ``fn(state, data, step_size,
+        aligned=None) -> (state, infos[B])``, :meth:`epoch`'s arguments
+        and results.  On the card one replay of a CUDA graph of the epoch
+        (captured at the first call with a new layout, data shape or start
+        phase); on the CPU the eager epoch.  The state passed in is kept or
+        consumed as ``donate`` says; a trainer on a CUDA mesh raises."""
+        self._no_cuda_mesh("jit_epoch")
+        if self._epoch_jit is None:
+            def run(state, data, step_size, aligned=None):
+                steps = step_like(step_size, state.x).reshape(1)
+                state, infos = self._program(
+                    state, [data], 1, steps, _first_leaf(data).shape[0],
+                    aligned)
+                return state, infos[0]
+            self._epoch_jit = run
+        return self._epoch_jit
+
+    def jit_epochs(self):
+        """The cached multi-epoch program: ``fn(state, data, step_size,
+        nepochs, aligned=None) -> (state, infos[nepochs, B])``, ``nepochs``
+        epochs over the same pre-batched ``data``, ``step_size`` a scalar
+        (the same every epoch) or a ``[nepochs]`` schedule.  On the card
+        ``nepochs`` replays of the epoch's CUDA graph with no host read
+        between them; on the CPU :meth:`epochs`.  Alignment is resolved
+        once, as in :meth:`epochs`.  The state passed in is kept or
+        consumed as ``donate`` says; a trainer on a CUDA mesh raises."""
+        self._no_cuda_mesh("jit_epochs")
+        if self._epochs_jit is None:
+            def run(state, data, step_size, nepochs, aligned=None):
+                steps = torch.broadcast_to(step_like(step_size, state.x),
+                                           (nepochs,))
+                return self._program(state, [data] * nepochs, nepochs, steps,
+                                     _first_leaf(data).shape[0], aligned)
+            self._epochs_jit = run
+        return self._epochs_jit
+
+    def jit_epochs_scheduled(self):
+        """The cached scheduled program: ``fn(state, flat_data,
+        step_sizes, orders, batch_size, aligned=None) -> (state,
+        infos[nepochs, B])``, :meth:`epochs_scheduled`'s arguments and
+        results.  On the card each epoch is one replay of a CUDA graph that
+        gathers ``a[order]`` of every leaf and runs the epoch on it, the
+        epoch's order and step copied into the graph's buffers before it;
+        on the CPU :meth:`epochs_scheduled`.  The state passed in is kept
+        or consumed as ``donate`` says; a trainer on a CUDA mesh raises."""
+        self._no_cuda_mesh("jit_epochs_scheduled")
+        if self._epochs_sched_jit is None:
+            def run(state, flat_data, step_sizes, orders, batch_size,
+                    aligned=None):
+                orders = _orders(flat_data, orders, batch_size)
+                nepochs, rows = orders.shape
+                steps = torch.broadcast_to(step_like(step_sizes, state.x),
+                                           (nepochs,))
+                return self._program(
+                    state, ((flat_data, orders[e]) for e in range(nepochs)),
+                    nepochs, steps, rows // batch_size, aligned,
+                    scheduled=batch_size)
+            self._epochs_sched_jit = run
+        return self._epochs_sched_jit
+
+
+def _orders(flat_data, orders, batch_size: int) -> torch.Tensor:
+    """A schedule's ``[nepochs, B * batch_size]`` row orders on the data's
+    device."""
+    orders = torch.as_tensor(orders, device=_first_leaf(flat_data).device)
+    if orders.shape[1] % batch_size:
+        raise ValueError(
+            f"orders.shape[1]={orders.shape[1]} must be a multiple of "
+            f"batch_size={batch_size} (each epoch row lists exactly the "
+            "gathered batch rows)")
+    return orders
+
+
+def _gather(flat_data, order: torch.Tensor, batch_size: int):
+    """One epoch's rows ``a[order]`` of every leaf, as ``[B, batch_size,
+    ...]`` batches."""
+    nbatch = order.shape[0] // batch_size
+    return _tree_map(lambda a: a.index_select(0, order).reshape(
+        (nbatch, batch_size) + tuple(a.shape[1:])), flat_data)
 
 
 def shuffle_batched(data, generator: torch.Generator):

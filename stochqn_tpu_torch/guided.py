@@ -357,10 +357,12 @@ class _GuidedBase:
         naming why).  With no ``callback_epoch`` and no validation set the
         whole fit is one call of the engine, with nothing read on the host
         between epochs; ``verbose`` problem reports are then printed after
-        the fit, the same lines, deferred.  The free-mode object's state
-        is consumed by the fused engine and replaced by the fit's final
-        one (:meth:`~stochqn_tpu_torch.free.SQN_free.adopt_state`), so
-        ``partial_fit`` continues from there.
+        the fit, the same lines, deferred.  The epochs run as the
+        trainer's single-dispatch programs (``jit_epochs_scheduled``,
+        ``jit_epochs``, ``jit_epoch``: CUDA graphs on the card), or
+        eagerly on a mesh.  The free-mode object's state is replaced by
+        the fit's final one (:meth:`~stochqn_tpu_torch.free.SQN_free.
+        adopt_state`), so ``partial_fit`` continues from there.
 
         ``mesh`` (fused engine only): a ``(data, param)`` ``DeviceMesh``
         (:func:`stochqn_tpu_torch.parallel.make_mesh`), one process per
@@ -657,7 +659,9 @@ class _GuidedBase:
                                                    n_rows)]
                     orders[e] = cur
                     steps[e] = self.decr_step_size(self.step_size, e)
-                state, infos = trainer.epochs_scheduled(
+                run = (trainer.jit_epochs_scheduled() if mesh is None
+                       else trainer.epochs_scheduled)
+                state, infos = run(
                     state, parts,
                     torch.as_tensor(steps, dtype=dtype, device=device),
                     torch.as_tensor(orders, device=device),
@@ -674,7 +678,9 @@ class _GuidedBase:
                         [self.decr_step_size(self.step_size, e)
                          for e in range(self.nepochs)], dtype=dtype,
                         device=device)
-                state, infos = trainer.epochs(
+                run = (trainer.jit_epochs() if mesh is None
+                       else trainer.epochs)
+                state, infos = run(
                     state, local(batchify(parts, self.batch_size)), steps,
                     nepochs=self.nepochs, aligned=aligned)
             infos_np = infos.cpu().numpy()           # [nepochs, B]
@@ -690,6 +696,7 @@ class _GuidedBase:
         # reshuffles the already-shuffled rows), so the two engines see
         # the same row orders; each epoch is one gather on the device.
         cur = np.arange(X.shape[0])
+        epoch_fn = trainer.jit_epoch() if mesh is None else trainer.epoch
         for self.epoch in range(self.nepochs):
             data = parts
             if self.shuffle_data:
@@ -698,10 +705,9 @@ class _GuidedBase:
                 order = torch.as_tensor(cur, device=device)
                 data = tuple(p.index_select(0, order) for p in parts)
             eta = self.decr_step_size(self.step_size, self.epoch)
-            state, infos = trainer.epoch(state,
-                                         local(batchify(data,
-                                                        self.batch_size)),
-                                         eta, aligned=niter % L == 0)
+            state, infos = epoch_fn(state,
+                                    local(batchify(data, self.batch_size)),
+                                    eta, aligned=niter % L == 0)
             infos_np = infos.cpu().numpy()
             last_info = Info(int(infos_np[-1]))
             if self.verbose:

@@ -419,12 +419,13 @@ class StochasticLogisticRegression:
                         else int(self.random_state))
         niter = 0                        # a fresh state; counted here
         num_batches = Yd.shape[0] // batch_size
+        epoch_fn = trainer.jit_epoch() if self.mesh is None else trainer.epoch
         for epoch in range(int(nepochs)):
             d = shuffle_batched(data, gen) if shuffle else data
             if self.mesh is not None:       # this rank's rows
                 d = shard_batches(d, self.mesh)
-            state, _ = trainer.epoch(state, d, decr(step_size, epoch),
-                                     aligned=niter % upd_freq == 0)
+            state, _ = epoch_fn(state, d, decr(step_size, epoch),
+                                aligned=niter % upd_freq == 0)
             niter += num_batches
             if has_val:
                 x = state.x if self.mesh is None else MeshComm(

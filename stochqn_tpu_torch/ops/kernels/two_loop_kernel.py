@@ -41,7 +41,10 @@ tensors go to its plain version, CUDA tensors to the kernel.  There is no
 fallback: a CUDA call that cannot launch the kernel raises.
 :data:`LAUNCHES`, :data:`DIRECTION_LAUNCHES`, :data:`PROJECT_LAUNCHES` and
 :data:`PROJECT_ADAQN_LAUNCHES` count kernel launches, so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels.  A wrapper called while its
+stream is captured into a CUDA graph launches nothing then: it records
+the launch in :data:`CAPTURED`, and the graph's owner counts it at every
+replay (:func:`count_replay`; :mod:`stochqn_tpu_torch.graphs`).
 """
 from __future__ import annotations
 
@@ -65,6 +68,32 @@ DIRECTION_LAUNCHES = 0
 PROJECT_LAUNCHES = 0
 # Kernel launches made by :func:`project_adaqn` (one per projection).
 PROJECT_ADAQN_LAUNCHES = 0
+# Launches recorded into the CUDA graph being captured, by counter name:
+# they run, and are counted, at each replay of the graph.
+CAPTURED: dict = {}
+_COUNTERS = ("LAUNCHES", "DIRECTION_LAUNCHES", "PROJECT_LAUNCHES",
+             "PROJECT_ADAQN_LAUNCHES")
+
+
+def _launched(counter: str) -> None:
+    """Count one launch of a kernel, or record it in :data:`CAPTURED`
+    where the current stream is being captured."""
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED[counter] = CAPTURED.get(counter, 0) + 1
+    else:
+        globals()[counter] += 1
+
+
+def count_replay(captured: dict) -> None:
+    """Count the launches a graph holds (``captured``, as
+    :data:`CAPTURED` was after its capture) for one replay of it."""
+    for counter, k in captured.items():
+        globals()[counter] += k
+
+
+def read_launches() -> dict:
+    """Every launch count, by counter name."""
+    return {c: globals()[c] for c in _COUNTERS}
 
 _CSRC = Path(__file__).resolve().parents[2] / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build"
@@ -151,7 +180,6 @@ def direction_streamed(s_mem: torch.Tensor, y_mem: torch.Tensor,
     over ``grad`` (2n bytes read, 4n written), which a load templated on
     the gradient's type inside the kernel would save.
     """
-    global LAUNCHES
     if grad.dtype == torch.bfloat16:
         grad = grad.float()
     _check("direction_streamed", _STORAGE, s_mem, y_mem, grad, c, gamma)
@@ -172,7 +200,7 @@ def direction_streamed(s_mem: torch.Tensor, y_mem: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"direction_streamed: kernel launch failed with "
                            f"CUDA error {err}")
-    LAUNCHES += 1
+    _launched("LAUNCHES")
     return d
 
 
@@ -230,7 +258,6 @@ def direction(s_mem: torch.Tensor, y_mem: torch.Tensor,
     Returns ``d [n]`` float32.  On CUDA a shape over the card's cap
     (:func:`direction_fits`) raises: :func:`direction_streamed` has none.
     """
-    global DIRECTION_LAUNCHES
     _check("direction", (torch.float32,), s_mem, y_mem, grad, c, gamma)
     if not _on_cuda("direction", s_mem):
         return direction_ref(s_mem, y_mem, grad, c, gamma)
@@ -253,7 +280,7 @@ def direction(s_mem: torch.Tensor, y_mem: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"direction: kernel launch failed with CUDA "
                            f"error {err}")
-    DIRECTION_LAUNCHES += 1
+    _launched("DIRECTION_LAUNCHES")
     return d
 
 
@@ -300,7 +327,6 @@ def project(s_mem: torch.Tensor, y_mem: torch.Tensor, grad: torch.Tensor
     contiguous and on one device.  Returns float32 tensors (views of one
     buffer on CUDA); the Gram is exactly symmetric there.
     """
-    global PROJECT_LAUNCHES
     _check_projection("project", s_mem, y_mem, grad=grad)
     if not _on_cuda("project", s_mem):
         return project_ref(s_mem, y_mem, grad)
@@ -319,7 +345,7 @@ def project(s_mem: torch.Tensor, y_mem: torch.Tensor, grad: torch.Tensor
     if err != 0:
         raise RuntimeError(f"project: kernel launch failed with CUDA "
                            f"error {err}")
-    PROJECT_LAUNCHES += 1
+    _launched("PROJECT_LAUNCHES")
     return out[:2 * m], out[2 * m:].view(2 * m, 2 * m)
 
 
@@ -348,7 +374,6 @@ def project_adaqn(s_mem: torch.Tensor, y_mem: torch.Tensor,
     float32, contiguous and on one device.  Returns float32 tensors (views
     of one buffer on CUDA).
     """
-    global PROJECT_ADAQN_LAUNCHES
     _check_projection("project_adaqn", s_mem, y_mem, diag=diag, grad=grad)
     if not _on_cuda("project_adaqn", s_mem):
         return project_adaqn_ref(s_mem, y_mem, diag, grad)
@@ -368,7 +393,7 @@ def project_adaqn(s_mem: torch.Tensor, y_mem: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"project_adaqn: kernel launch failed with CUDA "
                            f"error {err}")
-    PROJECT_ADAQN_LAUNCHES += 1
+    _launched("PROJECT_ADAQN_LAUNCHES")
     return out[:2 * m], out[2 * m:3 * m], out[3 * m:].view(m, m)
 
 

@@ -157,11 +157,15 @@ class PytreeTrainer:
         ``loss_fn``).
       val_data: optional batch on the state's device for adaQN's guard.
       mesh, reduction: a sharded run, as :class:`FusedTrainer` takes them.
+      donate: forward of ``FusedTrainer(donate=...)``, off by default:
+        the state passed to :meth:`run_epochs` or to the program of
+        :meth:`jit_epoch` stays readable; with ``True`` it is consumed
+        (keep using the returned state).
     """
 
     def __init__(self, optimizer: str, cfg: Any, loss_fn: Callable,
                  params_template: Any, val_data: Any = None, mesh=None,
-                 reduction: str = "sum"):
+                 reduction: str = "sum", donate: bool = False):
         if isinstance(params_template, torch.nn.Module):
             params_template = dict(params_template.named_parameters())
         self._template = params_template
@@ -173,7 +177,8 @@ class PytreeTrainer:
 
         self.trainer = FusedTrainer(optimizer, cfg, torch.func.grad(flat_loss),
                                     obj_fn=flat_loss, val_data=val_data,
-                                    mesh=mesh, reduction=reduction)
+                                    mesh=mesh, reduction=reduction,
+                                    donate=donate)
 
     def unravel(self, xflat: torch.Tensor):
         """Views of ``xflat`` in the template's structure."""
@@ -195,9 +200,14 @@ class PytreeTrainer:
     def epoch(self, state, data, step_size, aligned=None):
         return self.trainer.epoch(state, data, step_size, aligned=aligned)
 
+    def jit_epoch(self):
+        """:meth:`FusedTrainer.jit_epoch`: on the card one CUDA-graph
+        replay per epoch."""
+        return self.trainer.jit_epoch()
+
     def run_epochs(self, state, data, nepochs, step_size, **kw):
-        """:meth:`FusedTrainer.run_epochs`; the passed-in ``state`` is
-        consumed."""
+        """:meth:`FusedTrainer.run_epochs`; with ``donate=True`` the
+        passed-in ``state`` is consumed."""
         return self.trainer.run_epochs(state, data, nepochs, step_size, **kw)
 
     @property

@@ -9,7 +9,7 @@ ROOT = Path(__file__).resolve().parents[1]
 CHECK = """
 import sys
 import stochqn_tpu_torch
-from stochqn_tpu_torch import convert, free, fused
+from stochqn_tpu_torch import convert, free, fused, graphs
 from stochqn_tpu_torch.core import adaqn, olbfgs, protocol, sqn
 from stochqn_tpu_torch.ops import two_loop
 from stochqn_tpu_torch.ops.kernels import two_loop_kernel
@@ -77,6 +77,11 @@ tr = fused.FusedTrainer("SQN", stochqn_tpu_torch.SQNConfig.create(
 with comm.record_collectives() as log:
     st, _ = tr.epoch(tr.init(torch.zeros(4)), torch.ones(2, 2, 4), 0.1)
 assert [op.label for op in log] == ["grad", "grad", "hvp"], log
+# a CPU mesh: the single-dispatch programs run the eager loop
+st0 = tr.init(torch.zeros(4))
+st, infos = tr.jit_epochs()(st0, torch.ones(2, 2, 4), 0.1, 2)
+assert infos.shape == (2, 2) and int(st.niter) == 4 and int(st0.niter) == 0
+assert not graphs.captures(st)
 torch.distributed.destroy_process_group()
 # a protocol fit with a validation split: the split is the port's own
 rng = np.random.default_rng(0)
