@@ -63,8 +63,12 @@ Phases (each failure raises and exits non-zero; nothing is caught):
 10. The one-read ``direction`` kernel against its plain version and
     against the streamed kernel on a real commit cache at n = 900, 1,500,
     292,083 (where the card's cap admits it) and the largest n within the
-    cap; the first n over the cap must raise; then both direction kernels
-    timed in turns, and by n from 900 to 292,083.
+    cap, and at m = 1, 10, 32 and n = 2,001 ... 2,008 (every 16-byte phase
+    of the rows), the same bits twice; the first n over the cap must
+    raise; then timed at the flagship shape beside the plain version and
+    the library sequence ``W @ g``, ``C @ wg``, ``addmv``, both direction
+    kernels in turns, and by n from 900 to 292,083 (the floor at n = 900
+    and the cap go into the kernels' record).
 11. The free-mode SQN path at full width: ``SQN_free(mem_size=10,
     bfgs_upd_freq=20, use_float=True)`` driven by a request loop for one
     epoch of the same data, gradients and Hessian-vector products from
@@ -197,8 +201,9 @@ Phases (each failure raises and exits non-zero; nothing is caught):
     kernel route (``project_adaqn`` captured) and matvec route, and in
     float64 the JAX codes and loss within ``F64_RTOL``; each timed against
     the eager loop in turns from fresh states, with the call's peak
-    memory, the device's idle share and the kernel's launches by name in
-    a profiler trace of the replays; (d) ``jit_epochs_scheduled`` on phase
+    memory, the device's idle share and, from a profiler trace of one
+    replay, its device time by kernel name and the kernel's launches, time
+    a launch and share of the replay; (d) ``jit_epochs_scheduled`` on phase
     17's schedule against the eager ``epochs_scheduled`` and the JAX loss,
     a second call at another step on the cached graph, ``donate`` False
     (the input unchanged) and True (the graph's own buffers back, passed
@@ -1366,6 +1371,13 @@ def project_library(w, g):
     return lambda: (w @ g, w @ w.T)
 
 
+def direction_library(w, g, c, gamma):
+    """The library sequence that computes ``direction``'s output from a
+    ready ``W = [S; Y]``: three cuBLAS calls, since no one call computes
+    the function (a yardstick, as ``project``'s library pair is)."""
+    return lambda: torch.addmv(gamma * g, w.T, c @ (w @ g))
+
+
 def project_kernel_phase(dev):
     phase("9. project kernel vs plain version on the card")
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -1507,9 +1519,16 @@ def direction_kernel_phase(dev):
               f"n={n}: vs the streamed kernel max_abs_err="
               f"{float((got - streamed).abs().max()):.3e}")
         if n == N_FLAGSHIP:
-            timing = time_kernel(f"n={n} m={MEM_SIZE}",
-                                 lambda: tlk.direction(*args),
-                                 lambda: tlk.direction_ref(*args))
+            timing = time_kernel(
+                f"n={n} m={MEM_SIZE}", lambda: tlk.direction(*args),
+                lambda: tlk.direction_ref(*args),
+                direction_library(torch.cat([mem.s, mem.y]), *args[2:]))
+            timing["library_calls"] = (
+                "W @ g; C @ wg; torch.addmv(gamma * g, W.T, u), W formed "
+                "beforehand: three cuBLAS calls, no one call computes the "
+                "function")
+            timing["cap_n"] = {f"m{m}": tlk.direction_max_n(m, dev)
+                               for m in (1, MEM_SIZE, M20, 32)}
             # both direction kernels in turns, warm and with L2 flushed
             turns = {"direction": [], "direction_streamed": []}
             cold = {"direction": [], "direction_streamed": []}
@@ -1527,6 +1546,31 @@ def direction_kernel_phase(dev):
                 turns["direction_streamed"])
             timing["streamed_cold_ms"] = statistics.mean(
                 cold["direction_streamed"])
+    # n = 2,001 ... 2,008: the rows, g and each block's first column take
+    # every phase against the 16-byte boundary of the bulk copies
+    for m in (1, MEM_SIZE, 32):
+        for n in range(2001, 2009):
+            args = random_direction_args(m, n, torch.float32, dev, gen)
+            got = tlk.direction(*args)
+            again = tlk.direction(*args)
+            want = tlk.direction_ref(*args)
+            streamed = tlk.direction_streamed(*args)
+            torch.cuda.synchronize()
+            max_abs = float((got - want).abs().max())
+            worst = max(worst, max_abs)
+            if not (torch.equal(got, again)
+                    and torch.allclose(got, want, rtol=KERNEL_RTOL,
+                                       atol=KERNEL_ATOL)
+                    and torch.allclose(got, streamed, rtol=KERNEL_RTOL,
+                                       atol=KERNEL_ATOL)):
+                check(False, f"m={m} n={n}: the same bits twice, "
+                      f"max_abs_err={max_abs:.3e} vs plain, "
+                      f"{float((got - streamed).abs().max()):.3e} vs the "
+                      f"streamed kernel, within rtol={KERNEL_RTOL} "
+                      f"atol={KERNEL_ATOL}")
+    check(True, "direction agrees with its plain version and the streamed "
+          "kernel and gives the same bits twice at m in {1, 10, 32}, "
+          "n = 2001 ... 2008")
     # Both kernels by n: what grows with the bytes, and what is there at
     # any size (the launches, the grid barrier, the chain of latencies).
     sweep = {}
@@ -1553,6 +1597,8 @@ def direction_kernel_phase(dev):
             str(n): {name: [round(1e3 * v, 3) for v in pair]
                      for name, pair in row.items()}
             for n, row in sweep.items()}
+        # the floor: what a launch costs at any size, warm and L2 flushed
+        timing["floor_us"] = timing["us_by_n"]["900"]["direction"]
     n = max_n + 1
     over = (torch.zeros(MEM_SIZE, n, device=dev),
             torch.zeros(MEM_SIZE, n, device=dev), torch.zeros(n, device=dev),
@@ -3954,7 +4000,7 @@ def graph_times(what, eager, graphed, x0, data, step, nepochs, kernel=None):
     one = {"eager": lambda s: eager.epochs(s, data, step, 1, aligned=True),
            "graph": lambda s: graphed.jit_epochs()(s, data, step, 1,
                                                    aligned=True)}
-    idle, traced = {}, None
+    idle, traced, replay = {}, None, None
     for name in runs:
         s = fresh[name]()
         torch.cuda.synchronize()
@@ -3966,8 +4012,9 @@ def graph_times(what, eager, graphed, x0, data, step, nepochs, kernel=None):
         busy = sum(getattr(e, "self_device_time_total",
                            getattr(e, "self_cuda_time_total", 0))
                    for e in events) / 1e3
-        if name == "graph" and kernel is not None:
-            traced = sum(e.count for e in events if SYMBOL[kernel] in e.key)
+        if name == "graph":
+            replay = replay_split(events, kernel)
+            traced = replay.get("launches")
         s = fresh[name]()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3984,6 +4031,15 @@ def graph_times(what, eager, graphed, x0, data, step, nepochs, kernel=None):
               + ("not measured (the trace shows no device time)"
                  if idle[name] is None else f"{100 * idle[name]:.1f}%"),
               flush=True)
+    print(f"  {what}: one replay's profiler trace, "
+          f"{replay['device_us']:.1f} us of device time; by kernel: "
+          + "; ".join(f"{k[:60]} {v:.1f} us"
+                      for k, v in replay["by_kernel_us"].items()), flush=True)
+    if replay.get("us_per_launch") is not None:
+        print(f"  {what}: {SYMBOL[kernel]} inside the replay "
+              f"{replay['us_per_launch']:.3f} us a launch, "
+              f"{100 * replay['share']:.1f}% of the replay's device time",
+              flush=True)
     if kernel is not None:
         if traced:
             check(traced == NUM_BATCHES,
@@ -3994,7 +4050,27 @@ def graph_times(what, eager, graphed, x0, data, step, nepochs, kernel=None):
                   f"{SYMBOL[kernel]}: not cross-checked", flush=True)
     return dict(iters_per_s=ips, iters_per_s_all=rates, idle_share=idle,
                 peak_extra_mib={k: v / 2**20 for k, v in peak.items()},
-                traced_kernel_launches=traced)
+                traced_kernel_launches=traced, replay_trace=replay)
+
+
+def replay_split(events, kernel, top=8):
+    """From the profiler's ``key_averages()`` of one replay: its device
+    time, the ``top`` kernels by device time, and for ``kernel`` its
+    launches, its device time a launch and its share of the replay."""
+    by_name = {e.key: getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0))
+               for e in events}
+    by_name = {k: v for k, v in by_name.items() if v > 0}
+    total = sum(by_name.values())
+    out = {"device_us": total, "by_kernel_us": dict(sorted(
+        by_name.items(), key=lambda kv: -kv[1])[:top])}
+    if kernel is not None:
+        mine = [e for e in events if SYMBOL[kernel] in e.key]
+        count = sum(e.count for e in mine)
+        us = sum(by_name.get(e.key, 0) for e in mine)
+        out.update(launches=count, us_per_launch=us / count if count else None,
+                   share=us / total if total else None)
+    return out
 
 
 def graphs_phase(dev, front):

@@ -50,6 +50,7 @@ programs did since :func:`reset_stats`.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import os
 import time
 import weakref
@@ -212,18 +213,28 @@ class _Graph:
             t1 = time.perf_counter()
             self.graph = torch.cuda.CUDAGraph()
             tlk.CAPTURED.clear()
-            self.graph.capture_begin()
+            # No garbage collection while capturing: collecting another
+            # trainer's graph destroys it, which CUDA refuses during a
+            # capture, and the capture is lost.
+            collecting = gc.isenabled()
+            gc.collect()
+            gc.disable()
             try:
-                out, self.infos = run(family.state_tree(),
-                                      family.inputs_tree(), family.eta)
-                self.copy_bytes = family.write_back(out)
-            except BaseException as err:
+                self.graph.capture_begin()
                 try:
-                    self.graph.capture_end()
-                except Exception:  # noqa: BLE001 - the capture is void
-                    pass
-                raise _capture_error(trainer, err) from err
-            self.graph.capture_end()
+                    out, self.infos = run(family.state_tree(),
+                                          family.inputs_tree(), family.eta)
+                    self.copy_bytes = family.write_back(out)
+                except BaseException as err:
+                    try:
+                        self.graph.capture_end()
+                    except Exception:  # noqa: BLE001 - the capture is void
+                        pass
+                    raise _capture_error(trainer, err) from err
+                self.graph.capture_end()
+            finally:
+                if collecting:
+                    gc.enable()
             self.launches = dict(tlk.CAPTURED)
             tlk.CAPTURED.clear()
         cur.wait_stream(cap)

@@ -215,7 +215,85 @@ def test_kernel_matches_ref_on_cuda(cuda_device, n, m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [10, 32])
+@pytest.mark.parametrize("m", [1, 10, 32])
+@pytest.mark.parametrize("n", range(2001, 2009))
+def test_every_row_phase_on_cuda(cuda_device, n, m):
+    """n = 2,001 ... 2,008: row r of S and Y starts r * n elements on, so
+    the rows (and g, and each block's first column) take every phase
+    against the 16-byte boundary the bulk copies need."""
+    args = _torch_args(*_inputs(n, m=m), cuda_device)
+    got = tlk.direction(*args)
+    again = tlk.direction(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               tlk.direction_ref(*args).cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 10, 20, 32])
+def test_one_column_on_cuda(cuda_device, m):
+    args = _torch_args(*_inputs(1, m=m), cuda_device)
+    got = tlk.direction(*args)
+    again = tlk.direction(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               tlk.direction_ref(*args).cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4, 10, 32])
+@pytest.mark.parametrize("n", [2001, 2003, 29_207])
+def test_interleaved_views_on_cuda(cuda_device, n, m):
+    """``sy[:m]`` and ``sy[m:]`` of one ``[2m, n]`` buffer at odd n, as an
+    interleaved memory hands them over: ``sy[m:]`` starts off a 16-byte
+    boundary."""
+    s, y, g, c, gamma = _torch_args(*_inputs(n, m=m), cuda_device)
+    sy = torch.cat([s, y])
+    args = (sy[:m], sy[m:], g, c, gamma)
+    assert all(a.is_contiguous() for a in args[:2])
+    got = tlk.direction(*args)
+    again = tlk.direction(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, tlk.direction(s, y, g, c, gamma))
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               tlk.direction_ref(*args).cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [900, 292_083])
+def test_graph_replay_gives_eager_bits_on_cuda(cuda_device, monkeypatch, n):
+    """One ``direction`` captured in a CUDA graph (one block and a plain
+    launch at n = 900, a cooperative grid at the flagship): the replay
+    writes the eager call's bits, and the capture records its launch
+    instead of counting it."""
+    monkeypatch.setattr(tlk, "CAPTURED", {})
+    args = _torch_args(*_inputs(n, m=10), cuda_device)
+    eager = tlk.direction(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tlk.direction(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    launches = tlk.DIRECTION_LAUNCHES
+    with torch.cuda.graph(graph):
+        out = tlk.direction(*args)
+    assert tlk.DIRECTION_LAUNCHES == launches
+    assert tlk.CAPTURED == {"DIRECTION_LAUNCHES": 1}
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 10, 20, 32])
 def test_cap_on_cuda(cuda_device, m):
     """The largest n within the card's cap runs and is right; the first n
     over it raises before any launch."""
