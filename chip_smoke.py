@@ -20,7 +20,10 @@ Phases (each failure raises and exits non-zero; nothing is caught):
    commit cache (12 commits into a ring of m = 10), at n = 900, 1,500 and
    292,083, for float32 and bfloat16 pair storage; then both timed at the
    flagship shape with CUDA events, and again at m = 20 (the shape phase 11
-   gives it, which no H100 parks whole) beside the bound at that shape.
+   gives it, which no H100 parks whole) beside the bound at that shape;
+   with float32 pairs beside the library sequence ``W @ g``, ``C @ wg``,
+   ``addmv`` (phase 10's: in float32 the kernel computes ``direction``'s
+   function; no one call reads bfloat16 pairs against a float32 ``g``).
    Then kernel against plain and the same bits twice at m = 1, 10, 20, 32
    and n = 2,001 ... 2,008 (every 16-byte phase of the rows), and at n that
    the card's shared memory parks wholly, partly and hardly at all.
@@ -151,14 +154,25 @@ Phases (each failure raises and exits non-zero; nothing is caught):
     (a) in this process, an NCCL group of one rank and a (1, 1) mesh:
     fused SQN for 2 epochs gives phase 4's bits, one launch per step of the
     gate's kernel, and in the recorder one all-reduce of n * 4 bytes per
-    base step and per boundary.  Then clusters of this script, one process
-    per rank (``--rank``), all ranks on cuda:0 over gloo (NCCL refuses two
-    ranks on one GPU; the tensors stay on the card): (b) a (2, 1) mesh,
-    data-parallel fused SQN: x bit-identical on both ranks, each launching
-    the gate's kernel per step, (a)'s budget with group size 2, the JAX
-    loss within 0.1%; (c) the same mesh, adaQN with ``use_pallas=True``
-    (``project_adaqn`` per step on each rank): phase 7's boundary codes and
-    guard f at the first boundaries; (d) a (1, 3) mesh (n = 3 x 97,361),
+    base step and per boundary; then through ``jit_epochs`` (CUDA graphs
+    that hold NCCL's kernels) fused SQN, adaQN on ``project_adaqn`` and
+    ``StochasticLogisticRegression(mesh=make_mesh(1, 1))``: the eager
+    runs' bits (SQN phase 4's), the kernel counted 120 times a replay, the
+    recorder's log on the replays the eager log, op for op.  Where the
+    machine has the cards, clusters of one card a rank over NCCL: (2, 1)
+    SQN and adaQN, (1, 3) SQN and oLBFGS on the split route, each through
+    ``jit_epochs`` against the same cluster's eager epochs bit for bit,
+    with (b)-(d)'s gates and budgets, and SQN's graph and eager iters/s in
+    turns; with fewer cards a line says that they did not run.  Then
+    clusters of this script, one process per rank (``--rank``), all ranks
+    on cuda:0 over gloo (NCCL refuses two ranks on one GPU; the tensors
+    stay on the card): (b) a (2, 1) mesh, data-parallel fused SQN: x
+    bit-identical on both ranks, each launching the gate's kernel per
+    step, (a)'s budget with group size 2, the JAX loss within 0.1%,
+    ``jit_epochs()`` raising, naming gloo; (c) the same mesh, adaQN with
+    ``use_pallas=True`` (``project_adaqn`` per step on each rank): phase
+    7's boundary codes and guard f at the first boundaries; (d) a (1, 3)
+    mesh (n = 3 x 97,361),
     parameter-sharded fused SQN and oLBFGS: the split route every SQN step,
     no kernel launched, the CPU tests' collective budget, the JAX losses
     within 0.1%; (e) the (2, 1) mesh, ``StochasticLogisticRegression``
@@ -208,9 +222,13 @@ Phases (each failure raises and exits non-zero; nothing is caught):
     a second call at another step on the cached graph, ``donate`` False
     (the input unchanged) and True (the graph's own buffers back, passed
     in again without a copy); (e) phase 18's model and guided fused fits
-    each replayed a graph for their 2 epochs; (f) a trainer on a CUDA mesh
-    (NCCL, one rank): ``jit_epochs()`` raises.  It prints a ``graphs:``
-    line of its records.
+    each replayed a graph for their 2 epochs; (f) fused SQN on a (1, 1)
+    NCCL mesh through ``jit_epochs`` against its eager epochs bit for bit,
+    then the mesh's eager and graph runs and the unsharded graph timed in
+    turns, their idle shares, and from a profiler trace of one replay of
+    each graph the device time of NCCL's kernels and of the copies (the
+    mesh's ``sum_data`` clones).  It prints a ``graphs:`` line of its
+    records.
 
 The last two lines are the kernels' JSON record and the contract line
 ``{"ok": true, "device": {...}}``; the card's ``nvidia-smi`` line is
@@ -220,6 +238,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -758,9 +777,20 @@ def kernel_phase(dev):
                 timing[name] = time_kernel(
                     f"n={n} {name}",
                     lambda: tlk.direction_streamed(*args),
-                    lambda: tlk.direction_streamed_ref(*args))
+                    lambda: tlk.direction_streamed_ref(*args),
+                    streamed_library(mem, args))
     worst20, timing["m20"] = streamed_m20(dev, gen)
     return max(worst, worst20, streamed_shapes(dev, gen)), timing
+
+
+def streamed_library(mem, args):
+    """The library sequence of :func:`direction_library` for float32 pairs,
+    where the streamed kernel computes ``direction``'s function; None for
+    bfloat16 pairs: no one call reads them against a float32 ``g`` without
+    an upcast of the pairs, which the kernel does not do."""
+    if mem.s.dtype != torch.float32:
+        return None
+    return direction_library(torch.cat([mem.s, mem.y]), *args[2:])
 
 
 def random_direction_args(m, n, storage, dev, gen):
@@ -843,7 +873,8 @@ def streamed_m20(dev, gen):
               f"within rtol={KERNEL_RTOL} atol={KERNEL_ATOL}")
         t = time_kernel(f"m={M20} n={N_FLAGSHIP} {name}",
                         lambda: tlk.direction_streamed(*args),
-                        lambda: tlk.direction_streamed_ref(*args))
+                        lambda: tlk.direction_streamed_ref(*args),
+                        streamed_library(mem, args))
         t.update(direction_bound(M20, N_FLAGSHIP, mem.s.element_size()))
         print(f"  bound at m={M20} n={N_FLAGSHIP} {name}: "
               f"{t['bound_ms']:.5f} ms by {t['bound_by']}; kernel at "
@@ -3281,15 +3312,70 @@ def sqn_cfg():
     return SQNConfig.create(mem_size=MEM_SIZE, bfgs_upd_freq=UPD_FREQ)
 
 
+@contextlib.contextmanager
+def nccl_group():
+    """A one-rank NCCL process group in this process.  On the way out every
+    CUDA graph that holds its kernels must already be unreferenced: they
+    are collected before the group is destroyed.  A failure inside leaves
+    the process at once: its traceback holds the graphs, and destroying
+    the group under them can hang."""
+    import tempfile
+    import traceback
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.distributed.init_process_group(
+            "nccl", init_method="file://" + os.path.join(tmp, "rdv"),
+            world_size=1, rank=0)
+        try:
+            yield
+        except BaseException:
+            traceback.print_exc()
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(1)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.distributed.destroy_process_group()
+
+
+def graph_against_eager(make, x0, data, step, nepochs=2):
+    """``make()``'s eager ``epochs`` and another ``make()``'s ``jit_epochs``
+    (its first call captures; the second, the one counted and recorded
+    (:func:`counted`), is replays only), from ``x0``.  Returns ``(same,
+    state, infos, eager_counts, eager_log, counts, log)``: ``same`` whether
+    the replays gave the eager run's bits in every tensor of the state and
+    every info code, ``state`` and ``infos`` the replays'."""
+    eager, graphed = make(), make()
+    (ref, ref_infos), eager_counts, eager_log = counted(
+        lambda: eager.epochs(eager.init(x0), data, step, nepochs,
+                             aligned=True))
+    graphed.jit_epochs()(graphed.init(x0), data, step, nepochs, aligned=True)
+    graphs.reset_stats()
+    (st, infos), counts, log = counted(
+        lambda: graphed.jit_epochs()(graphed.init(x0), data, step, nepochs,
+                                     aligned=True))
+    same = bool(torch.equal(infos, ref_infos) and same_state(st, ref)
+                and graphs.STATS["replays"] == nepochs
+                and graphs.STATS["captures"] == 0)
+    return (same, st, infos, eager_counts, eager_log, counts, log)
+
+
+def same_log(a, b):
+    """Two :func:`log_table` records hold the same collectives in order."""
+    return all(np.array_equal(a[k], b[k]) for k in ("labels", "nbytes",
+                                                    "groups"))
+
+
 def rank_jobs(cluster, rank, ckpt):
     """The jobs of one rank of ``cluster``: ``{job: results}``."""
     from stochqn_tpu_torch.parallel import (gather_state, make_mesh,
                                             shard_batches)
     from stochqn_tpu_torch.utils.checkpoint import (load_sharded,
                                                     save_sharded)
-    dev = torch.device("cuda", 0)
+    dev = torch.device("cuda", torch.cuda.current_device())
     X, Y, x0 = bench_data(dev)
     out = {}
+    if cluster.startswith("nccl"):
+        return nccl_rank_jobs(cluster, X, Y, x0)
     if cluster == "dp":
         mesh = make_mesh(SHARD_DP, 1)
         data = shard_batches((X, Y), mesh)
@@ -3309,6 +3395,11 @@ def rank_jobs(cluster, rank, ckpt):
                         count=np.int64(int(st.mem.count)), **counts, **log)
         _, times = timed_epochs(tr, st, data)
         out["b"].update(times)
+        try:                    # gloo's collectives run on the host
+            tr.jit_epochs()
+            out["b"]["jit_raised"] = np.array("")
+        except RuntimeError as err:
+            out["b"]["jit_raised"] = np.array(str(err))
 
         fvals = []
 
@@ -3371,30 +3462,96 @@ def rank_jobs(cluster, rank, ckpt):
     return out
 
 
+def nccl_rank_jobs(cluster, X, Y, x0):
+    """The jobs of one rank of an NCCL cluster, one card per rank: each
+    run through ``jit_epochs`` (CUDA graphs holding NCCL's kernels)
+    against the same cluster's eager ``epochs``, counted and recorded,
+    and SQN's iters/s on the graph and eager in turns."""
+    from stochqn_tpu_torch.parallel import gather_state, make_mesh, \
+        shard_batches
+    n_data = SHARD_DP if cluster == "nccl_dp" else 1
+    mesh = make_mesh(n_data, 1 if cluster == "nccl_dp" else SHARD_PARAM)
+    data = shard_batches((X, Y), mesh)
+
+    def g(x, b):                # the penalty split over the data ranks
+        return losses.multinomial_logistic_grad(x, b[0], b[1], None,
+                                                REG / n_data)
+    jobs = {"sqn": (lambda: FusedTrainer("SQN", sqn_cfg(), g, mesh=mesh),
+                    STEP)}
+    if cluster == "nccl_dp":
+        jobs["adaqn"] = (lambda: FusedTrainer("adaQN", AdaQNConfig.create(
+            **ADAQN_KW, use_pallas=True), g, obj_fn=lambda x, b: (
+                losses.multinomial_logistic_loss(x, b[0], b[1], None,
+                                                 REG / n_data)),
+            mesh=mesh), ADAQN_STEP)
+    else:
+        jobs["olbfgs"] = (lambda: FusedTrainer("oLBFGS", OLBFGSConfig.create(
+            mem_size=MEM_SIZE), g, mesh=mesh), STEP)
+    out = {}
+    for job, (make, step) in jobs.items():
+        same, st, infos, ecounts, elog, counts, log = graph_against_eager(
+            make, x0, data, step)
+        full = gather_state(st, mesh)
+        out[job] = dict(same=np.bool_(same), same_log=np.bool_(
+            same_log(log, elog)), x=full.x.cpu().numpy(),
+            infos=infos.cpu().numpy(), count=np.int64(int(st.mem.count)),
+            **{f"eager_{k}": v for k, v in ecounts.items()}, **counts, **log)
+    make, _ = jobs["sqn"]
+    eager, graphed = make(), make()
+    graphed.jit_epochs()(graphed.init(x0), data, STEP, 1, aligned=True)
+    rates = {"eager": [], "graph": []}
+    for name in ("eager", "graph", "graph", "eager", "eager", "graph"):
+        tr = eager if name == "eager" else graphed
+        run = tr.epochs if name == "eager" else tr.jit_epochs()
+        s0 = tr.init(x0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(s0, data, STEP, GRAPH_EPOCHS["sqn"], aligned=True)
+        torch.cuda.synchronize()
+        rates[name].append(GRAPH_EPOCHS["sqn"] * NUM_BATCHES
+                           / (time.perf_counter() - t0))
+    out["sqn"].update({f"{k}_iters_per_s": np.array(v)
+                       for k, v in rates.items()})
+    return out
+
+
 def rank_main(argv):
     """One rank of a phase 19 cluster (``--rank r --world w --cluster c
-    --dir d``): joins the gloo group through the rendezvous file in ``d``
-    and writes ``d/<job>.r<rank>.npz``."""
+    --dir d``): joins the group through the rendezvous file in ``d`` and
+    writes ``d/<job>.r<rank>.npz``.  An ``nccl_*`` cluster takes one card
+    per rank and NCCL; the others share cuda:0 over gloo (NCCL refuses two
+    ranks on one GPU)."""
     args = dict(zip(argv[0::2], argv[1::2]))
     rank, world = int(args["--rank"]), int(args["--world"])
-    out_dir = args["--dir"]
+    out_dir, cluster = args["--dir"], args["--cluster"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    torch.cuda.set_device(0)
-    # gloo, not NCCL: NCCL refuses two ranks on one GPU
+    nccl = cluster.startswith("nccl")
+    torch.cuda.set_device(rank if nccl else 0)
     torch.distributed.init_process_group(
-        "gloo", init_method="file://" + os.path.join(out_dir, "rendezvous"),
+        "nccl" if nccl else "gloo",
+        init_method="file://" + os.path.join(out_dir, "rendezvous"),
         world_size=world, rank=rank)
     try:
         t0 = time.perf_counter()
-        results = rank_jobs(args["--cluster"], rank,
+        results = rank_jobs(cluster, rank,
                             os.path.join(out_dir, "checkpoint"))
         for arrays in results.values():
             arrays["job_seconds"] = np.float64(time.perf_counter() - t0)
         for job, arrays in results.items():
             np.savez(os.path.join(out_dir, f"{job}.r{rank}.npz"), **arrays)
-    finally:
-        torch.distributed.destroy_process_group()
+    except BaseException:
+        # the traceback holds the trainers' graphs: leave without
+        # destroying the group under them
+        import traceback
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    # the trainers (and their graphs) died with rank_jobs' frame
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.distributed.destroy_process_group()
     return 0
 
 
@@ -3455,13 +3612,186 @@ def one_rank_ips(trainer, state, data):
     return state, rates
 
 
+def one_rank_mesh(X, Y, x0, chosen, x_phase4):
+    """Phase 19 (a), inside a one-rank NCCL group: the (1, 1) mesh's fused
+    SQN eager (phase 4's bits, the kernel per step, the recorder's
+    budget), then fused SQN, adaQN on ``project_adaqn`` and the logistic
+    model through the programs: every replay the eager run's bits, the
+    kernel 120 times a replay, the recorder's log on the replays the eager
+    log, op for op.  Returns the launches of the paths."""
+    from stochqn_tpu_torch.parallel import MeshComm, make_mesh
+    steps = 2 * NUM_BATCHES
+    mesh = make_mesh(1, 1)
+    check(MeshComm(mesh).capturable, "(a) the (1, 1) mesh's groups are "
+          "NCCL, whose collectives a CUDA graph can hold")
+    tr = FusedTrainer("SQN", sqn_cfg(), grad_fn, mesh=mesh)
+    (st, _), counts, log = counted(lambda: tr.epochs(
+        tr.init(x0), (X, Y), STEP, nepochs=2, aligned=True))
+    launches = int(counts.pop(chosen))
+    check(launches == steps and not any(int(v) for v in counts.values()),
+          f"(a) mesh (1, 1) on NCCL: {chosen} launched {launches} times for "
+          f"{steps} steps, the other kernels {counts}")
+
+    def budget(what, log):
+        labels = log["labels"].tolist()
+        check(labels.count("grad") == steps
+              and labels.count("hvp") == steps // UPD_FREQ
+              and len(labels) == steps + steps // UPD_FREQ
+              and set(log["nbytes"].tolist()) == {N_FLAGSHIP * 4}
+              and set(log["groups"].tolist()) == {1},
+              f"(a) {what}: the recorder holds one all-reduce of n * 4 = "
+              f"{N_FLAGSHIP * 4} bytes per base step ({labels.count('grad')})"
+              f" and per boundary ({labels.count('hvp')}), group size 1, "
+              "nothing else")
+    budget("eager", log)
+    check(torch.equal(st.x, x_phase4),
+          "(a) x after 2 epochs: phase 4's bits (a sum over one rank "
+          "changes nothing)")
+    out = {"mesh_1x1_fused_sqn": launches}
+
+    def on_graph(what, make, step, kernel):
+        same, st, _, ecounts, elog, counts, log = graph_against_eager(
+            make, x0, (X, Y), step)
+        check(same, f"(a) {what} through jit_epochs: 2 replays of a CUDA "
+              "graph holding NCCL's kernels give the eager epochs' bits in "
+              "every tensor of the state and every info code")
+        check(int(counts[kernel]) == steps
+              and all(int(counts[k]) == int(ecounts[k]) for k in counts),
+              f"(a) {what}: {kernel} counted {int(counts[kernel]) // 2} "
+              f"times a replay; every count the eager run's")
+        check(same_log(log, elog), f"(a) {what}: the recorder on the "
+              f"replays logs the eager run's {len(elog['labels'])} "
+              "collectives, op for op")
+        return st, log, int(counts[kernel])
+
+    st, log, out["mesh_1x1_graph_fused_sqn"] = on_graph(
+        "SQN", lambda: FusedTrainer("SQN", sqn_cfg(), grad_fn, mesh=mesh),
+        STEP, chosen)
+    budget("the replays", log)
+    check(torch.equal(st.x, x_phase4), "(a) SQN on the graph: phase 4's x")
+    _, _, out["mesh_1x1_graph_fused_adaqn"] = on_graph(
+        "adaQN, use_pallas=True", lambda: FusedTrainer(
+            "adaQN", AdaQNConfig.create(**ADAQN_KW, use_pallas=True),
+            grad_fn, obj_fn=obj_fn, mesh=mesh), ADAQN_STEP, "project_adaqn")
+
+    Xh, Yh, _, _ = front_end_data()
+
+    def fit():
+        return StochasticLogisticRegression(mesh=mesh, **DP_MODEL_KW).fit(
+            Xh, Yh)
+    graphs.reset_stats()
+    clf, counts, _ = counted(fit)
+    stats = {k: graphs.STATS[k] for k in ("captures", "replays")}
+    replayed = graph_launches("replay_launches")[chosen]
+    saved = FusedTrainer.eager_only
+    FusedTrainer.eager_only = property(lambda self: True)   # the eager driver
+    try:
+        clf_eager = fit()
+    finally:
+        FusedTrainer.eager_only = saved
+    check(np.array_equal(clf.x_, clf_eager.x_) and stats["captures"] == 1
+          and stats["replays"] == 2 and replayed == steps,
+          f"(a) StochasticLogisticRegression(mesh=make_mesh(1, 1)): "
+          f"{stats['captures']} graph captured, {stats['replays']} replays, "
+          f"{chosen} counted {replayed // 2} times a replay; the eager "
+          "driver's bits")
+    out["mesh_1x1_graph_logistic_sqn"] = int(counts[chosen])
+    return out
+
+
+def nccl_clusters(full_loss, chosen):
+    """Phase 19's NCCL clusters, one card per rank, where the machine has
+    the cards: (2, 1) SQN and adaQN, (1, 3) SQN and oLBFGS on the split
+    route, each through ``jit_epochs`` against the same cluster's eager
+    epochs bit for bit, with (b)-(d)'s gates and budgets.  Returns their
+    records, or why they did not run."""
+    import tempfile
+    cards = torch.cuda.device_count()
+    out = {}
+    for cluster, world in (("nccl_dp", SHARD_DP), ("nccl_param", SHARD_PARAM)):
+        if cards < world:
+            print(f"  NCCL cluster {cluster} ({world} ranks, one card each) "
+                  f"did not run: this machine has {cards} card(s); the "
+                  "multi-card capture is not verified by this run",
+                  flush=True)
+            out[cluster] = f"not run: {cards} card(s) for {world} ranks"
+            continue
+        with tempfile.TemporaryDirectory() as tmp:
+            wall = run_cluster(cluster, world, tmp)
+            jobs = ("sqn", "adaqn") if cluster == "nccl_dp" else (
+                "sqn", "olbfgs")
+            ranks = {job: load_job(tmp, job, world) for job in jobs}
+        rec = {"wall_s": wall}
+        steps = 2 * NUM_BATCHES
+        for job, rks in ranks.items():
+            what = f"NCCL {cluster} {job}"
+            x = same_x_on_ranks(what, rks)
+            for r, rk in enumerate(rks):
+                check(bool(rk["same"]) and bool(rk["same_log"]),
+                      f"{what} rank {r}: 2 replays of a CUDA graph holding "
+                      "NCCL's kernels give the eager epochs' bits, and the "
+                      "recorder the eager log, op for op")
+                kernel = {"sqn": chosen, "adaqn": "project_adaqn",
+                          "olbfgs": None}[job]
+                if cluster == "nccl_param":
+                    kernel = None
+                want = steps if kernel else 0
+                got = int(rk[kernel]) if kernel else sum(
+                    int(rk[k]) for k in SYMBOL)
+                check(got == want and all(
+                    int(rk[k]) == int(rk["eager_" + k]) for k in SYMBOL),
+                      f"{what} rank {r}: {kernel or 'no kernel'} counted "
+                      f"{got} times on the replays (want {want}), as many "
+                      "as eager")
+            infos = rks[0]["infos"].ravel().tolist()
+            if job == "adaqn":
+                hist = {v: infos.count(v) for v in sorted(set(infos))}
+                check(hist == JAX_ADAQN_INFOS,
+                      f"{what}: info histogram {hist}, the JAX package's")
+                rec[job] = {"loss": full_loss(x)}
+                print(f"  {what}: loss after 2 epochs {rec[job]['loss']:.4f}"
+                      f" (phase 7: JAX {JAX_ADAQN_LOSS['kernel']})",
+                      flush=True)
+                continue
+            check(set(infos) == {200}, f"{what}: every info code 200")
+            want = JAX_LOSS_2_EPOCHS if job == "sqn" else \
+                JAX_OLBFGS_LOSS["block"]
+            loss_gate(what, full_loss(x), want, LOSS_RTOL)
+            rec[job] = {"loss": full_loss(x)}
+            if job == "sqn":
+                labels = rks[0]["labels"].tolist()
+                if cluster == "nccl_dp":
+                    check(labels.count("grad") == steps
+                          and labels.count("hvp") == steps // UPD_FREQ
+                          and len(labels) == steps + steps // UPD_FREQ
+                          and set(rks[0]["groups"].tolist()) == {world},
+                          f"{what}: (b)'s budget on the replays, group "
+                          f"size {world}")
+                else:
+                    check(labels.count("two_loop") == steps
+                          and labels.count("guard") == steps,
+                          f"{what}: (d)'s split route on the replays, one "
+                          "two-loop sum and one guard sum a step")
+                rates = {k: rks[0][f"{k}_iters_per_s"].tolist()
+                         for k in ("eager", "graph")}
+                rec[job]["iters_per_s"] = {
+                    k: statistics.median(v) for k, v in rates.items()}
+                print(f"  {what}, rank 0, {GRAPH_EPOCHS['sqn']} epochs a "
+                      "call in turns: eager " + ", ".join(
+                          f"{v:.1f}" for v in rates["eager"]) + "; graph "
+                      + ", ".join(f"{v:.1f}" for v in rates["graph"])
+                      + " iters/s", flush=True)
+        out[cluster] = rec
+    return out
+
+
 def sharded_phase(dev, x_phase4):
     phase("19. sharded paths at BibTeX shape: a (1, 1) NCCL mesh in this "
-          "process; data-parallel (2, 1) SQN, adaQN and the logistic model, "
-          "parameter-sharded (1, 3) SQN and oLBFGS, a sharded checkpoint, "
-          f"over {GLOO_LABEL}")
+          "process, eager and on CUDA graphs; NCCL clusters of one card a "
+          "rank where the machine has the cards; data-parallel (2, 1) SQN, "
+          "adaQN and the logistic model, parameter-sharded (1, 3) SQN and "
+          f"oLBFGS, a sharded checkpoint, over {GLOO_LABEL}")
     import tempfile
-    from stochqn_tpu_torch.parallel import make_mesh, record_collectives
     t_phase = time.perf_counter()
     X, Y, x0 = bench_data(dev)
     Xf, Yf = X.reshape(-1, N_FEATURES), Y.reshape(-1, N_CLASSES)
@@ -3473,41 +3803,11 @@ def sharded_phase(dev, x_phase4):
     chosen, _ = gate_choice(MEM_SIZE, N_FLAGSHIP, dev)
     out = {"launches": {}}
 
-    # (a) NCCL, one rank, mesh (1, 1), in this process
-    with tempfile.TemporaryDirectory() as tmp:
-        torch.distributed.init_process_group(
-            "nccl", init_method="file://" + os.path.join(tmp, "rdv"),
-            world_size=1, rank=0)
-        try:
-            mesh = make_mesh(1, 1)
-            tr = FusedTrainer("SQN", sqn_cfg(), grad_fn, mesh=mesh)
-            torch.cuda.synchronize()
-            reset_launches()
-            with record_collectives() as log:
-                st, infos = tr.epochs(tr.init(x0), (X, Y), STEP, nepochs=2,
-                                      aligned=True)
-            torch.cuda.synchronize()
-            counts = read_launches()
-        finally:
-            torch.distributed.destroy_process_group()
-    launches = counts.pop(chosen)
-    grads = [op for op in log if op.label == "grad"]
-    hvps = [op for op in log if op.label == "hvp"]
-    check(launches == steps and not any(counts.values()),
-          f"(a) mesh (1, 1) on NCCL: {chosen} launched {launches} times for "
-          f"{steps} steps, the other kernels {counts}")
-    check(len(grads) == steps and len(hvps) == steps // UPD_FREQ
-          and len(log) == len(grads) + len(hvps)
-          and all(op.payload_bytes == N_FLAGSHIP * 4 and op.group_size == 1
-                  and op.kind == "all-reduce" for op in log),
-          f"(a) the recorder: one all-reduce of n * 4 = {N_FLAGSHIP * 4} "
-          f"bytes per base step ({len(grads)}) and per boundary "
-          f"({len(hvps)}), group size 1, nothing else")
-    check(torch.equal(st.x, x_phase4),
-          "(a) x after 2 epochs: phase 4's bits (a sum over one rank "
-          "changes nothing)")
-    out["launches"]["mesh_1x1_fused_sqn"] = launches
-
+    # (a) NCCL, one rank, mesh (1, 1), in this process: eager, then on CUDA
+    #     graphs that hold NCCL's kernels
+    with nccl_group():
+        out["launches"].update(one_rank_mesh(X, Y, x0, chosen, x_phase4))
+    out["nccl_clusters"] = nccl_clusters(full_loss, chosen)
     trainer = FusedTrainer("SQN", sqn_cfg(), grad_fn)
     one_state, one_rank = one_rank_ips(trainer, trainer.init(x0), (X, Y))
 
@@ -3547,6 +3847,10 @@ def sharded_phase(dev, x_phase4):
               and set(rk["groups"].tolist()) == {SHARD_DP},
               f"(b) rank {r}: (a)'s budget, group size {SHARD_DP}: one "
               "all-reduce of n * 4 bytes per base step and per boundary")
+        raised = str(rk["jit_raised"])
+        check("gloo" in raised and "epochs()" in raised,
+              f"(b) rank {r}: jit_epochs() on the gloo mesh raises, naming "
+              f"gloo and the eager drivers: {raised}")
     infos_b = b[0]["infos"].ravel().tolist()
     loss_b = full_loss(xb)
     check(set(infos_b) == {200} and int(b[0]["count"]) == MEM_SIZE,
@@ -3996,32 +4300,15 @@ def graph_times(what, eager, graphed, x0, data, step, nepochs, kernel=None):
         peak[name] = max(peak[name], torch.cuda.max_memory_allocated() - base)
         del out, s
     ips = {k: statistics.median(v) for k, v in rates.items()}
-    from torch.profiler import ProfilerActivity, profile
     one = {"eager": lambda s: eager.epochs(s, data, step, 1, aligned=True),
            "graph": lambda s: graphed.jit_epochs()(s, data, step, 1,
                                                    aligned=True)}
     idle, traced, replay = {}, None, None
     for name in runs:
-        s = fresh[name]()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            one[name](s)
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        busy = sum(getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0))
-                   for e in events) / 1e3
+        idle[name], events = traced_call(one[name], fresh[name])
         if name == "graph":
             replay = replay_split(events, kernel)
             traced = replay.get("launches")
-        s = fresh[name]()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        one[name](s)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        idle[name] = None if busy <= 0 else 1 - busy / wall
     for name in runs:
         print(f"  {what}, {name}: {nepochs} epochs from a fresh state (in "
               f"turns): {', '.join(f'{v:.1f}' for v in rates[name])} "
@@ -4053,17 +4340,53 @@ def graph_times(what, eager, graphed, x0, data, step, nepochs, kernel=None):
                 traced_kernel_launches=traced, replay_trace=replay)
 
 
+def traced_call(one, fresh):
+    """``one(fresh())`` under the profiler, and again without it: the
+    device's idle share over the call (busy time in the trace against the
+    wall of the untraced call; None where the trace shows no device time)
+    and the trace's ``key_averages()``."""
+    from torch.profiler import ProfilerActivity, profile
+    s = fresh()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one(s)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+               for e in events) / 1e3
+    s = fresh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one(s)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return (None if busy <= 0 else 1 - busy / wall), events
+
+
 def replay_split(events, kernel, top=8):
     """From the profiler's ``key_averages()`` of one replay: its device
-    time, the ``top`` kernels by device time, and for ``kernel`` its
-    launches, its device time a launch and its share of the replay."""
+    time, the ``top`` kernels by device time, NCCL's kernels and the
+    copies (device-to-device copies and copy kernels) by name with their
+    launches and device time, and for ``kernel`` its launches, its device
+    time a launch and its share of the replay."""
     by_name = {e.key: getattr(e, "self_device_time_total",
                               getattr(e, "self_cuda_time_total", 0))
                for e in events}
     by_name = {k: v for k, v in by_name.items() if v > 0}
     total = sum(by_name.values())
+    counts = {e.key: e.count for e in events}
     out = {"device_us": total, "by_kernel_us": dict(sorted(
         by_name.items(), key=lambda kv: -kv[1])[:top])}
+    for part, match in (("nccl", lambda k: "nccl" in k.lower()),
+                        ("copies", lambda k: "copy" in k.lower()
+                         or "memcpy" in k.lower())):
+        # an aten:: op's device time is its kernels', listed apart
+        mine = {k: [counts[k], v] for k, v in by_name.items()
+                if match(k) and not k.startswith("aten::")}
+        out[part] = mine
+        out[part + "_us"] = sum(v for _, v in mine.values())
     if kernel is not None:
         mine = [e for e in events if SYMBOL[kernel] in e.key]
         count = sum(e.count for e in mine)
@@ -4071,6 +4394,83 @@ def replay_split(events, kernel, top=8):
         out.update(launches=count, us_per_launch=us / count if count else None,
                    share=us / total if total else None)
     return out
+
+
+def mesh_graph_times(x0, data, chosen):
+    """Phase 22 (f), inside a one-rank NCCL group: fused SQN on the (1, 1)
+    mesh through ``jit_epochs`` against its eager epochs
+    (:func:`graph_vs_eager`), then the mesh's eager and graph runs and the
+    unsharded graph timed in turns from fresh states, each one's idle
+    share over a call of one epoch, and from a profiler trace of one
+    replay of each graph its device time, NCCL's kernels and the copies
+    (the mesh's ``sum_data`` clones are the copies it has over the
+    unsharded replay)."""
+    from stochqn_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(1, 1)
+    n = TIMED_EPOCHS["sqn"]
+    what = "(f) SQN on the (1, 1) NCCL mesh"
+    eager, graphed, _, _, rec = graph_vs_eager(
+        what, lambda: FusedTrainer("SQN", sqn_cfg(), grad_fn, mesh=mesh), x0,
+        data, STEP, n, chosen)
+    plain = sqn_trainer()
+    plain.jit_epochs()(plain.init(x0), data, STEP, 1, aligned=True)
+    runs = {"mesh eager": (eager, eager.epochs),
+            "mesh graph": (graphed, graphed.jit_epochs()),
+            "graph": (plain, plain.jit_epochs())}
+    rates = {k: [] for k in runs}
+    for name in ("mesh eager", "mesh graph", "graph", "graph", "mesh graph",
+                 "mesh eager", "mesh eager", "graph", "mesh graph"):
+        tr, run = runs[name]
+        s0 = tr.init(x0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(s0, data, STEP, n, aligned=True)
+        torch.cuda.synchronize()
+        rates[name].append(n * NUM_BATCHES / (time.perf_counter() - t0))
+    ips = {k: statistics.median(v) for k, v in rates.items()}
+    idle, split = {}, {}
+    for name, (tr, run) in runs.items():
+        idle[name], events = traced_call(
+            lambda s, run=run: run(s, data, STEP, 1, aligned=True),
+            lambda tr=tr: tr.init(x0))
+        if name != "mesh eager":
+            split[name] = replay_split(events, chosen)
+    for name in runs:
+        print(f"  {what}: {name}, {n} epochs a call from a fresh state (in "
+              f"turns): {', '.join(f'{v:.1f}' for v in rates[name])} "
+              f"iters/s, median {ips[name]:.1f}; device idle over a call of "
+              "one epoch " + ("not measured (no device time in the trace)"
+                              if idle[name] is None
+                              else f"{100 * idle[name]:.1f}%"), flush=True)
+    for name, rep in split.items():
+        total = rep["device_us"] or float("nan")
+        print(f"  {what}: one replay of the {name}, {rep['device_us']:.1f} "
+              f"us of device time; NCCL's kernels {rep['nccl_us']:.1f} us "
+              f"({100 * rep['nccl_us'] / total:.2f}%): "
+              + ("none in the trace" if not rep["nccl"] else "; ".join(
+                  f"{k[:100]} x{c} {us:.1f} us"
+                  for k, (c, us) in rep["nccl"].items()))
+              + f"; copies {rep['copies_us']:.1f} us "
+              f"({100 * rep['copies_us'] / total:.2f}%): " + "; ".join(
+                  f"{k[:100]} x{c} {us:.1f} us"
+                  for k, (c, us) in rep["copies"].items())
+              + "; the top kernels: " + "; ".join(
+                  f"{k[:100]} {us:.1f} us"
+                  for k, us in rep["by_kernel_us"].items()), flush=True)
+    clones = split["mesh graph"]["copies_us"] - split["graph"]["copies_us"]
+    gap = 1 - ips["mesh graph"] / ips["graph"]
+    print(f"  {what}: the mesh's graph {100 * gap:.1f}% under the unsharded "
+          f"graph's iters/s ({ips['mesh graph']:.1f} against "
+          f"{ips['graph']:.1f}), {ips['mesh graph'] / ips['mesh eager']:.2f}x "
+          f"its eager rate; its replay's copies exceed the unsharded one's "
+          f"by {clones:.1f} us (the sum_data clones, "
+          f"{100 * clones / split['mesh graph']['device_us']:.2f}% of the "
+          f"replay), its NCCL kernels take "
+          f"{split['mesh graph']['nccl_us']:.1f} us", flush=True)
+    rec.update(iters_per_s=ips, iters_per_s_all=rates, idle_share=idle,
+               replay_trace=split, clones_us=clones,
+               graph_gap_to_unsharded=gap)
+    return rec
 
 
 def graphs_phase(dev, front):
@@ -4243,25 +4643,11 @@ def graphs_phase(dev, front):
           f"{bare['epochs']:.1f} (its epochs) and {bare['call']:.1f} (the "
           "call)", flush=True)
 
-    # (f) a CUDA trainer with a mesh: jit_* raises, naming epochs()
+    # (f) SQN on the (1, 1) NCCL mesh: graph against eager in turns, and
+    #     beside the unsharded graph
     clock("(f)")
-    import tempfile
-    from stochqn_tpu_torch.parallel import make_mesh
-    with tempfile.TemporaryDirectory() as tmp:
-        torch.distributed.init_process_group(
-            "nccl", init_method="file://" + os.path.join(tmp, "rdv"),
-            world_size=1, rank=0)
-        try:
-            tr = FusedTrainer("SQN", sqn_cfg(), grad_fn, mesh=make_mesh(1, 1))
-            try:
-                tr.jit_epochs()
-                raised = None
-            except RuntimeError as err:
-                raised = str(err)
-        finally:
-            torch.distributed.destroy_process_group()
-    check(raised is not None and "epochs()" in raised,
-          f"(f) FusedTrainer on a CUDA mesh: jit_epochs() raises: {raised}")
+    with nccl_group():
+        out["runs"]["sqn_mesh_1x1"] = mesh_graph_times(x0n, data, chosen)
     check(not plain_calls, f"no plain version was called ({len(plain_calls)})")
     restore_plain()
     out["seconds"] = time.perf_counter() - t_phase
@@ -4407,10 +4793,11 @@ def main():
     # rank (each of the 2 ranks launched as many)
     sl = sharded["launches"]
     by_path[chosen].update({k: sl[k] for k in (
-        "mesh_1x1_fused_sqn", "dp_fused_sqn_per_rank",
+        "mesh_1x1_fused_sqn", "mesh_1x1_graph_fused_sqn",
+        "mesh_1x1_graph_logistic_sqn", "dp_fused_sqn_per_rank",
         "dp_logistic_sqn_per_rank")})
-    by_path["project_adaqn"]["dp_fused_adaqn_per_rank"] = \
-        sl["dp_fused_adaqn_per_rank"]
+    by_path["project_adaqn"].update({k: sl[k] for k in (
+        "mesh_1x1_graph_fused_adaqn", "dp_fused_adaqn_per_rank")})
     # phase 22: the replays of the CUDA graphs and their warm-up epochs
     gl = programs["launches"]
     by_path[chosen].update({k: gl[k] for k in (
@@ -4476,7 +4863,8 @@ def main():
     # the parameter-sharded paths take the split route: no kernel
     sharded_record = {"param_sharded_paths_launch_none":
                       sharded["param_sharded_launches"],
-                      "times": sharded["times"]}
+                      "times": sharded["times"],
+                      "nccl_clusters": sharded["nccl_clusters"]}
     print(json.dumps({"kernels": [
         entry("direction_streamed", 309,
               max(max_abs, bf16_iterate["max_abs"]), f32,

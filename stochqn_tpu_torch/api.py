@@ -99,7 +99,7 @@ def minimize(loss_fn: Callable, x0, data, *, optimizer: str = "adaQN",
     # niter is counted here (a fresh state): no epoch waits for a read
     niter = 0
     num_batches = _first_leaf(data).shape[0]
-    epoch_fn = trainer.jit_epoch() if mesh is None else trainer.epoch
+    epoch_fn = trainer.epoch if trainer.eager_only else trainer.jit_epoch()
     for epoch in range(nepochs):
         eta = (step_size if decr_step_size is None
                else decr_step_size(step_size, epoch))

@@ -67,6 +67,10 @@ param axis the state holds this rank's slice of every parameter-axis
 field and the ops sum their n-contractions over that axis.  GSPMD
 partitions a global ``grad_fn`` by itself; here the trainer has to be
 told how the ranks' results combine.  With no mesh nothing of this runs.
+On a CUDA mesh whose groups are NCCL the programs capture the sharded
+epoch, its collectives included, in CUDA graphs as they capture an
+unsharded one; on a CUDA mesh over gloo, whose collectives run on the
+host, only the eager drivers run (:attr:`FusedTrainer.eager_only`).
 """
 from __future__ import annotations
 
@@ -437,6 +441,10 @@ class FusedTrainer:
         copy).  On: the state passed in is consumed, and on the card the
         returned state is the graph's own buffers, which the next call
         takes without a copy and overwrites.
+
+    On an NCCL mesh the trainer's CUDA graphs hold NCCL kernels: drop the
+    trainer and run ``gc.collect()`` before ``torch.distributed.
+    destroy_process_group()``, which can hang under a live graph.
     """
 
     optimizer: str
@@ -504,6 +512,16 @@ class FusedTrainer:
                 (x_full,) = comm.gather_param([x], "gather x")
                 return obj_fn(x_full, batch)
             self._val_obj = val_obj
+
+    @property
+    def eager_only(self) -> bool:
+        """Whether only the eager drivers run: on a CUDA mesh whose groups
+        are gloo, whose collectives run on the host and cannot be captured
+        (:meth:`jit_epoch` and the others raise there).  False with no
+        mesh, on a CPU mesh (the programs run the eager loop there) and on
+        an NCCL mesh (they replay CUDA graphs)."""
+        return (self._comm is not None and self.mesh.device_type != "cpu"
+                and not self._comm.capturable)
 
     def init(self, x0, device=None):
         """Fresh state at ``x0`` (copied), on ``device``.  With no
@@ -722,7 +740,9 @@ class FusedTrainer:
         the host count then advances by ``B`` per epoch, so any start,
         mid-round included, takes its boundaries where the JAX package's
         do.  The state passed in is consumed only with ``donate=True``, as
-        in the JAX package; on a CUDA mesh the epochs run eagerly."""
+        in the JAX package.  On a CUDA mesh over gloo (:attr:`eager_only`),
+        where no graph can hold the collectives, the epochs run in the
+        eager loop, with the same steps."""
         local = self._local(data) if shuffle is None else None
 
         def epoch_data():
@@ -736,22 +756,25 @@ class FusedTrainer:
                              _first_leaf(data).shape[0], None)
 
     # -- the JAX package's single-dispatch programs ------------------------ #
-    def _no_cuda_mesh(self, what: str) -> None:
-        if self.mesh is not None and self.mesh.device_type != "cpu":
+    def _no_gloo_mesh(self, what: str) -> None:
+        if self.eager_only:
             raise RuntimeError(
-                f"{what}: a program is captured in a CUDA graph, and a "
-                "mesh's collectives on the card cannot be captured; on a "
-                "mesh call the eager epoch() / epochs() / "
+                f"{what}: a program is captured in a CUDA graph, and this "
+                "CUDA mesh's groups run over gloo, whose collectives run on "
+                "the host and cannot be captured (an NCCL mesh can); on a "
+                "gloo mesh call the eager epoch() / epochs() / "
                 "epochs_scheduled()")
 
     def _program(self, state, epoch_inputs, nepochs: int, steps, num_batches,
                  aligned, scheduled: Optional[int] = None):
         """``nepochs`` epochs through the CUDA graphs where the state is on
-        the card and there is no mesh, else the eager loop (on a copy of
-        the state unless ``donate``).  ``epoch_inputs`` yields each epoch's
-        batched data or, for a schedule (``scheduled`` the batch size),
-        ``(flat_data, order)``."""
-        if not graphs.captures(state) or self.mesh is not None:
+        the card (with no mesh or on an NCCL mesh), else the eager loop (on
+        a copy of the state unless ``donate``).  ``epoch_inputs`` yields
+        each epoch's batched data or, for a schedule (``scheduled`` the
+        batch size), ``(flat_data, order)``: every rank's full rows, of
+        which the epoch takes this rank's after the gather."""
+        if not (graphs.captures(state) and (
+                self._comm is None or self._comm.capturable)):
             if not self.donate:
                 state = copy_tree(state)
             if scheduled is not None:
@@ -765,7 +788,7 @@ class FusedTrainer:
                 return self._epoch_at(st, data, eta, layout[1], layout[0])
         else:
             def epoch(st, inputs, eta, layout):
-                data = _gather(inputs[0], inputs[1], scheduled)
+                data = self._local(_gather(inputs[0], inputs[1], scheduled))
                 return self._epoch_at(st, data, eta, layout[1], layout[0])
         return self._programs.drive(
             "batched" if scheduled is None else "scheduled", state,
@@ -777,9 +800,11 @@ class FusedTrainer:
         aligned=None) -> (state, infos[B])``, :meth:`epoch`'s arguments
         and results.  On the card one replay of a CUDA graph of the epoch
         (captured at the first call with a new layout, data shape or start
-        phase); on the CPU the eager epoch.  The state passed in is kept or
-        consumed as ``donate`` says; a trainer on a CUDA mesh raises."""
-        self._no_cuda_mesh("jit_epoch")
+        phase); on the CPU the eager epoch.  On an NCCL mesh the graph
+        holds the epoch's collectives.  The state passed in is kept or
+        consumed as ``donate`` says; a trainer on a CUDA mesh over gloo
+        raises (:attr:`eager_only`)."""
+        self._no_gloo_mesh("jit_epoch")
         if self._epoch_jit is None:
             def run(state, data, step_size, aligned=None):
                 steps = step_like(step_size, state.x).reshape(1)
@@ -797,9 +822,11 @@ class FusedTrainer:
         (the same every epoch) or a ``[nepochs]`` schedule.  On the card
         ``nepochs`` replays of the epoch's CUDA graph with no host read
         between them; on the CPU :meth:`epochs`.  Alignment is resolved
-        once, as in :meth:`epochs`.  The state passed in is kept or
-        consumed as ``donate`` says; a trainer on a CUDA mesh raises."""
-        self._no_cuda_mesh("jit_epochs")
+        once, as in :meth:`epochs`.  On an NCCL mesh the graph holds the
+        epoch's collectives.  The state passed in is kept or consumed as
+        ``donate`` says; a trainer on a CUDA mesh over gloo raises
+        (:attr:`eager_only`)."""
+        self._no_gloo_mesh("jit_epochs")
         if self._epochs_jit is None:
             def run(state, data, step_size, nepochs, aligned=None):
                 steps = torch.broadcast_to(step_like(step_size, state.x),
@@ -816,9 +843,12 @@ class FusedTrainer:
         results.  On the card each epoch is one replay of a CUDA graph that
         gathers ``a[order]`` of every leaf and runs the epoch on it, the
         epoch's order and step copied into the graph's buffers before it;
-        on the CPU :meth:`epochs_scheduled`.  The state passed in is kept
-        or consumed as ``donate`` says; a trainer on a CUDA mesh raises."""
-        self._no_cuda_mesh("jit_epochs_scheduled")
+        on the CPU :meth:`epochs_scheduled`.  On a mesh every rank passes
+        the full rows and the graph takes this rank's after the gather, as
+        :meth:`epochs_scheduled` does.  The state passed in is kept or
+        consumed as ``donate`` says; a trainer on a CUDA mesh over gloo
+        raises (:attr:`eager_only`)."""
+        self._no_gloo_mesh("jit_epochs_scheduled")
         if self._epochs_sched_jit is None:
             def run(state, flat_data, step_sizes, orders, batch_size,
                     aligned=None):

@@ -29,9 +29,10 @@ since (its ``_version`` unchanged).
 
 A graph is keyed by what decides its ops: its family (the trainer, the
 state's layout and its tensors' shapes, dtypes and devices, the data's,
-the step's dtype, a scheduled epoch's batch size) and the epoch's layout
-(round-chunked, or generic from a start phase ``niter % upd_freq``: up to
-``upd_freq`` graphs where ``B % upd_freq != 0``).  The layout is decided
+the step's dtype, a scheduled epoch's batch size, the mesh's shape and
+this rank's place in it) and the epoch's layout (round-chunked, or
+generic from a start phase ``niter % upd_freq``: up to ``upd_freq``
+graphs where ``B % upd_freq != 0``).  The layout is decided
 on the host before the epoch, as the eager driver decides it.
 
 Before its capture a graph's epoch runs once eagerly on a scratch copy of
@@ -46,6 +47,32 @@ launch with the graph (:data:`~stochqn_tpu_torch.ops.kernels.
 two_loop_kernel.CAPTURED`) instead of counting it, and every replay
 counts the launches its graph holds.  :data:`STATS` keeps what the
 programs did since :func:`reset_stats`.
+
+On a mesh (``FusedTrainer(mesh=...)``) whose groups are NCCL, the epoch's
+collectives are captured with it: ``ProcessGroupNCCL`` runs each on its
+own stream, ordered after the capture stream and joined back into it, so
+the graph holds NCCL's kernels between the epoch's own.  What that needs:
+
+* the warm-up epoch runs every collective of the epoch once for real,
+  which creates NCCL's communicators (made at a group's first call, and
+  not inside a capture);
+* every rank captures and replays the same graphs in the same order: the
+  layout and the start phase are host decisions every rank makes alike
+  from the same ``niter`` and batch count, so no rank waits in a
+  collective that another rank's graph does not hold;
+* the capture runs in thread-local mode, so that the calls NCCL's
+  watchdog thread makes meanwhile do not void it;
+* the graph is keyed by the mesh's shape and this rank's place in it too,
+  and its collectives are logged at each replay
+  (:func:`stochqn_tpu_torch.parallel.comm.log_replay`), as its launches
+  are counted.
+
+A graph that holds NCCL kernels must be released before the process group
+is destroyed (drop the trainer and ``gc.collect()``): destroying the
+group under a live graph can hang, and a later replay would run on a dead
+communicator.  A gloo group runs its collectives on the host, so a trainer
+on a CUDA mesh over gloo has no programs (``FusedTrainer.jit_epoch`` and
+the others raise there).
 """
 from __future__ import annotations
 
@@ -59,6 +86,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from stochqn_tpu_torch.ops.kernels import two_loop_kernel as tlk
+from stochqn_tpu_torch.parallel import comm
 
 # Since the last reset_stats(): graphs captured and replays, the seconds
 # spent capturing and instantiating graphs and warming them up, and the
@@ -213,6 +241,7 @@ class _Graph:
             t1 = time.perf_counter()
             self.graph = torch.cuda.CUDAGraph()
             tlk.CAPTURED.clear()
+            comm.CAPTURED.clear()
             # No garbage collection while capturing: collecting another
             # trainer's graph destroys it, which CUDA refuses during a
             # capture, and the capture is lost.
@@ -220,7 +249,10 @@ class _Graph:
             gc.collect()
             gc.disable()
             try:
-                self.graph.capture_begin()
+                # on a mesh NCCL's watchdog thread queries events while
+                # this thread captures: global mode would void the capture
+                self.graph.capture_begin(capture_error_mode=(
+                    "global" if trainer.mesh is None else "thread_local"))
                 try:
                     out, self.infos = run(family.state_tree(),
                                           family.inputs_tree(), family.eta)
@@ -236,7 +268,9 @@ class _Graph:
                 if collecting:
                     gc.enable()
             self.launches = dict(tlk.CAPTURED)
+            self.collectives = list(comm.CAPTURED)
             tlk.CAPTURED.clear()
+            comm.CAPTURED.clear()
         cur.wait_stream(cap)
         self.warm_s = t1 - t0
         self.capture_s = time.perf_counter() - t1
@@ -251,6 +285,7 @@ class _Graph:
         (overwritten by the next replay)."""
         self.graph.replay()
         tlk.count_replay(self.launches)
+        comm.log_replay(self.collectives)
         self.replays += 1
         STATS["replays"] += 1
         _add(STATS["replay_launches"], self.launches)
@@ -352,8 +387,11 @@ class EpochPrograms:
                 f"{kind}: the state and the data must be on one device "
                 f"(the state is on {dev}, the data on "
                 f"{sorted({str(t.device) for t in i_leaves})})")
+        c = self.trainer._comm          # the mesh's shape, this rank's place
+        mesh = None if c is None else (c.n_data, c.n_param, c.data_rank,
+                                       c.param_rank)
         key = (kind, s_spec, _meta(s_leaves), i_spec, _meta(i_leaves),
-               eta_dtype, static)
+               eta_dtype, static, mesh)
         if key not in self.families:
             self.families[key] = _Family(self.trainer, state, inputs,
                                          eta_dtype, epoch_fn)

@@ -359,10 +359,11 @@ class _GuidedBase:
         between epochs; ``verbose`` problem reports are then printed after
         the fit, the same lines, deferred.  The epochs run as the
         trainer's single-dispatch programs (``jit_epochs_scheduled``,
-        ``jit_epochs``, ``jit_epoch``: CUDA graphs on the card), or
-        eagerly on a mesh.  The free-mode object's state is replaced by
-        the fit's final one (:meth:`~stochqn_tpu_torch.free.SQN_free.
-        adopt_state`), so ``partial_fit`` continues from there.
+        ``jit_epochs``, ``jit_epoch``: CUDA graphs on the card, an NCCL
+        mesh's included), or eagerly on a CUDA mesh over gloo, whose
+        collectives cannot be captured.  The free-mode object's state is
+        replaced by the fit's final one (:meth:`~stochqn_tpu_torch.free.
+        SQN_free.adopt_state`), so ``partial_fit`` continues from there.
 
         ``mesh`` (fused engine only): a ``(data, param)`` ``DeviceMesh``
         (:func:`stochqn_tpu_torch.parallel.make_mesh`), one process per
@@ -659,8 +660,8 @@ class _GuidedBase:
                                                    n_rows)]
                     orders[e] = cur
                     steps[e] = self.decr_step_size(self.step_size, e)
-                run = (trainer.jit_epochs_scheduled() if mesh is None
-                       else trainer.epochs_scheduled)
+                run = (trainer.epochs_scheduled if trainer.eager_only
+                       else trainer.jit_epochs_scheduled())
                 state, infos = run(
                     state, parts,
                     torch.as_tensor(steps, dtype=dtype, device=device),
@@ -678,8 +679,8 @@ class _GuidedBase:
                         [self.decr_step_size(self.step_size, e)
                          for e in range(self.nepochs)], dtype=dtype,
                         device=device)
-                run = (trainer.jit_epochs() if mesh is None
-                       else trainer.epochs)
+                run = (trainer.epochs if trainer.eager_only
+                       else trainer.jit_epochs())
                 state, infos = run(
                     state, local(batchify(parts, self.batch_size)), steps,
                     nepochs=self.nepochs, aligned=aligned)
@@ -696,7 +697,7 @@ class _GuidedBase:
         # reshuffles the already-shuffled rows), so the two engines see
         # the same row orders; each epoch is one gather on the device.
         cur = np.arange(X.shape[0])
-        epoch_fn = trainer.jit_epoch() if mesh is None else trainer.epoch
+        epoch_fn = trainer.epoch if trainer.eager_only else trainer.jit_epoch()
         for self.epoch in range(self.nepochs):
             data = parts
             if self.shuffle_data:

@@ -419,7 +419,7 @@ class StochasticLogisticRegression:
                         else int(self.random_state))
         niter = 0                        # a fresh state; counted here
         num_batches = Yd.shape[0] // batch_size
-        epoch_fn = trainer.jit_epoch() if self.mesh is None else trainer.epoch
+        epoch_fn = trainer.epoch if trainer.eager_only else trainer.jit_epoch()
         for epoch in range(int(nepochs)):
             d = shuffle_batched(data, gen) if shuffle else data
             if self.mesh is not None:       # this rank's rows

@@ -205,6 +205,11 @@ class PytreeTrainer:
         replay per epoch."""
         return self.trainer.jit_epoch()
 
+    @property
+    def eager_only(self) -> bool:
+        """:attr:`FusedTrainer.eager_only`."""
+        return self.trainer.eager_only
+
     def run_epochs(self, state, data, nepochs, step_size, **kw):
         """:meth:`FusedTrainer.run_epochs`; with ``donate=True`` the
         passed-in ``state`` is consumed."""

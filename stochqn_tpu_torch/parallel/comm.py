@@ -20,6 +20,13 @@ kind, its payload bytes, its group size and a caller's label.
 :func:`collective_ops` and :func:`collective_bytes` read a log back, as
 their JAX namesakes read HLO text; the tests lock the collective budgets
 of a step with them.
+
+Inside a CUDA-graph capture nothing runs, so a call there is recorded in
+:data:`CAPTURED` (the graph being captured keeps that list, as it keeps
+the kernel launches of ``two_loop_kernel.CAPTURED``), and each replay of
+the graph adds its collectives to every open log (:func:`log_replay`).
+Per-step budgets therefore read the same on a replayed epoch as on an
+eager one.
 """
 from __future__ import annotations
 
@@ -41,6 +48,9 @@ class CollectiveOp:
 
 # The logs of the recorders now open (a stack: recorders may nest).
 _OPEN_LOGS: List[List[CollectiveOp]] = []
+# The collectives called inside the CUDA-graph capture now running, in
+# order (cleared and read by stochqn_tpu_torch.graphs).
+CAPTURED: List[CollectiveOp] = []
 
 
 @contextlib.contextmanager
@@ -66,11 +76,24 @@ def collective_bytes(log: List[CollectiveOp], label=None) -> int:
     return sum(op.payload_bytes for op in collective_ops(log, label))
 
 
+def log_replay(ops: List[CollectiveOp]) -> None:
+    """Log the collectives a CUDA graph holds (``ops``, as
+    :data:`CAPTURED` was after its capture) for one replay of it."""
+    for log in _OPEN_LOGS:
+        log.extend(ops)
+
+
+def _capturing(buf: torch.Tensor) -> bool:
+    """Whether ``buf``'s collective is being captured, not run."""
+    return buf.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
 def _record(kind: str, buf: torch.Tensor, group, label: str) -> None:
-    if _OPEN_LOGS:
+    logs = [CAPTURED] if _capturing(buf) else _OPEN_LOGS
+    if logs:
         op = CollectiveOp(kind, buf.numel() * buf.element_size(),
                           dist.get_world_size(group), label)
-        for log in _OPEN_LOGS:
+        for log in logs:
             log.append(op)
 
 

@@ -8,6 +8,13 @@ process loads only its rows (:func:`process_local_batch_slice`,
 :func:`global_batches`).  With explicit SPMD there is no global array to
 assemble: a rank's rows and its state slice are plain tensors on its
 device.
+
+Teardown: on an NCCL mesh a trainer's programs are CUDA graphs that hold
+NCCL kernels.  Release them before ``torch.distributed.
+destroy_process_group()``: drop every trainer that ran them and run
+``gc.collect()``.  Destroying
+the group under a live graph can hang, and a later replay would run on a
+dead communicator.
 """
 from __future__ import annotations
 

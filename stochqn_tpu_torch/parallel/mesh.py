@@ -96,10 +96,22 @@ def _sum_together(parts: Sequence[torch.Tensor], group, label: str):
     return tuple(out)
 
 
+def capturable(group) -> bool:
+    """Whether ``group``'s collectives can be captured in a CUDA graph:
+    NCCL's run as kernels on the card; gloo's run on the host."""
+    backend = str(dist.get_backend(group))
+    return backend == "nccl" or "cuda:nccl" in backend
+
+
 class MeshComm:
     """This rank's place in a ``(data, param)`` mesh, and the sums over it
     that the engine and the ops run.  ``None`` in place of one means no
-    mesh: every sum is then the identity."""
+    mesh: every sum is then the identity.
+
+    ``capturable``: whether both groups' collectives can be captured in a
+    CUDA graph (NCCL groups).  Every sum here allocates and copies on the
+    device only (``torch.cat`` and slices, a clone, a zero buffer and a
+    slice assignment), so nothing but the collective decides it."""
 
     def __init__(self, mesh: DeviceMesh):
         self.mesh = mesh
@@ -108,6 +120,8 @@ class MeshComm:
         self.param_group = mesh.get_group(PARAM_AXIS)
         self.data_rank = mesh.get_local_rank(DATA_AXIS)
         self.param_rank = mesh.get_local_rank(PARAM_AXIS)
+        self.capturable = (capturable(self.data_group)
+                           and capturable(self.param_group))
 
     def sum_param(self, parts: Sequence[torch.Tensor], label: str):
         """The parts (one dtype) summed over the param axis in one

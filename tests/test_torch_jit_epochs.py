@@ -32,6 +32,7 @@ from stochqn_tpu.fused import FusedTrainer as JaxTrainer  # noqa: E402
 from stochqn_tpu_torch import (AdaQNConfig, FusedTrainer,  # noqa: E402
                                OLBFGSConfig, SQNConfig, graphs)
 from stochqn_tpu_torch.graphs import copy_tree, flatten  # noqa: E402
+import torch_dist_worker as tw  # noqa: E402
 
 RTOL, ATOL = 1e-9, 1e-12
 L = 4
@@ -249,15 +250,61 @@ def test_donated_epoch_trajectory_identical(rng, kind):
 
 
 def test_jit_on_a_cuda_mesh_raises(rng):
-    """A mesh's collectives on the card cannot be captured: every
-    ``jit_*`` of a trainer on a CUDA mesh raises, naming the eager
-    drivers; a CPU (gloo) mesh takes the eager loop
-    (``test_torch_no_jax.py``)."""
+    """A CUDA mesh over gloo: gloo's collectives run on the host and cannot
+    be captured, so every ``jit_*`` of a trainer on it raises, naming gloo
+    and the eager drivers (``eager_only``); a CPU (gloo) mesh takes the
+    eager loop (``test_torch_no_jax.py``), an NCCL mesh the graphs (the
+    next test)."""
     tr = _torch_trainer("SQN", _quad(rng, 4))
     tr.mesh = types.SimpleNamespace(device_type="cuda")
+    tr._comm = types.SimpleNamespace(capturable=False)
+    assert tr.eager_only
     for get in (tr.jit_epoch, tr.jit_epochs, tr.jit_epochs_scheduled):
-        with pytest.raises(RuntimeError, match=r"epochs\(\)"):
+        with pytest.raises(RuntimeError, match=r"gloo.*epoch\(\) / "
+                           r"epochs\(\) / epochs_scheduled\(\)"):
             get()
+
+
+class _OneRankNccl:
+    """A one-rank mesh whose groups report NCCL: every sum the identity."""
+    n_data = n_param = 1
+    data_rank = param_rank = 0
+    capturable = True
+
+    def sum_param(self, parts, label):
+        return tuple(parts)
+
+    def sum_data(self, t, label):
+        return t.clone()
+
+    def gather_param(self, parts, label):
+        return tuple(parts)
+
+    def param_slice(self, full):
+        return full
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_jit_on_an_nccl_mesh_takes_the_graph_path(rng, replayed, kind):
+    """A CUDA mesh whose groups are NCCL: ``jit_epochs`` runs the graph
+    driver (one family, keyed by the mesh's shape and this rank's place,
+    one graph), with the eager epochs' bits on the same mesh."""
+    n, B, bs = 8, 12, 2
+    a = _quad(rng, n)
+    data = torch.from_numpy(rng.standard_normal((B, bs, n)))
+    tr, eager = _torch_trainer(kind, a), _torch_trainer(kind, a)
+    s0, r0 = (t.init(torch.zeros(n, dtype=F64)) for t in (tr, eager))
+    for t in (tr, eager):
+        t.mesh = types.SimpleNamespace(device_type="cuda")
+        t._comm = _OneRankNccl()
+    assert not tr.eager_only
+    st, infos = tr.jit_epochs()(s0, data, 0.05, 2)
+    ref, ref_infos = eager.epochs(r0, data, 0.05, 2)
+    assert torch.equal(infos, ref_infos)
+    _same_bits(st, ref)
+    (key,) = tr._programs.families
+    assert key[-1] == (1, 1, 0, 0)
+    assert len(tr._programs.graphs()) == 1
 
 
 def test_capture_error_names_the_user_function(rng):
@@ -277,21 +324,9 @@ def test_capture_error_names_the_user_function(rng):
 
 
 # -- the graph driver, with a stand-in for the capture ------------------------ #
-class _Replayed:
-    """In place of :class:`graphs._Graph` on the CPU: each replay runs the
-    epoch on the family's buffers and writes its state back, as the
-    captured graph does."""
-
-    def __init__(self, family, run):
-        self.family, self.run = family, run
-        self.launches, self.replays = {}, 0
-
-    def replay(self):
-        fam = self.family
-        out, infos = self.run(fam.state_tree(), fam.inputs_tree(), fam.eta)
-        fam.write_back(out)
-        self.replays += 1
-        return infos
+# In place of graphs._Graph on the CPU: each replay runs the epoch on the
+# family's buffers and writes its state back, as the captured graph does.
+_Replayed = tw.ReplayedGraph
 
 
 @pytest.fixture

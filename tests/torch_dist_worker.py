@@ -14,6 +14,7 @@ Usage: python tests/torch_dist_worker.py <suite> <rank> <world> <init file>
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -104,6 +105,157 @@ def ls_problem(seed=11, rows=64, features=6):
 
 
 GUIDED_REG = 0.05
+
+
+# ---------------------------------------------------------------------------
+# the sharded programs (jit_epoch / jit_epochs / jit_epochs_scheduled) on
+# the graph driver, with a stand-in for the capture
+class ReplayedGraph:
+    """In place of ``stochqn_tpu_torch.graphs._Graph`` where nothing is
+    captured (the CPU): each replay runs the epoch on the family's buffers
+    and writes its state back, as the captured graph does.  The epoch's
+    collectives go where a capture puts them (``comm.CAPTURED``, not the
+    open logs), and the replay then logs them as ``_Graph.replay`` does.
+    :data:`REPLAYED` takes the layout of every replay, in order."""
+
+    def __init__(self, family, run):
+        self.family, self.run = family, run
+        self.launches, self.replays = {}, 0
+
+    def replay(self):
+        from stochqn_tpu_torch.parallel import comm
+        fam = self.family
+        comm.CAPTURED.clear()
+        capturing, comm._capturing = comm._capturing, lambda buf: True
+        try:
+            out, infos = self.run(fam.state_tree(), fam.inputs_tree(),
+                                  fam.eta)
+            fam.write_back(out)
+        finally:
+            comm._capturing = capturing
+        comm.log_replay(list(comm.CAPTURED))
+        comm.CAPTURED.clear()
+        self.replays += 1
+        REPLAYED.append(next(k for k, g in fam.graphs.items() if g is self))
+        return infos
+
+
+REPLAYED: list = []
+
+
+@contextlib.contextmanager
+def graph_stand_in():
+    """The graph driver on gloo CPU ranks: :class:`ReplayedGraph` for the
+    capture, every state taken as one on the card and every group as
+    NCCL's (build the trainers inside the block)."""
+    from stochqn_tpu_torch import graphs
+    from stochqn_tpu_torch.parallel import mesh
+    saved = graphs._Graph, graphs.captures, mesh.capturable
+    graphs._Graph, graphs.captures = ReplayedGraph, lambda state: True
+    mesh.capturable = lambda group: True
+    try:
+        yield
+    finally:
+        graphs._Graph, graphs.captures, mesh.capturable = saved
+
+
+# __graft_entry__.dryrun_multichip's six cases at 4 devices, its shapes and
+# seeds: name -> (optimizer, mesh, (n_features, n_classes, batch_size,
+# num_batches, seed), config).  "scheduled" runs jit_epochs_scheduled,
+# "sparse" the padded-COO gradient.
+DRYRUN = {
+    "sqn_2x2": ("SQN", (2, 2), (63, 8, 8, 4, 0),
+                dict(mem_size=10, bfgs_upd_freq=2)),
+    "adaqn_1x4": ("adaQN", (1, 4), (63, 4, 4, 4, 1),
+                  dict(mem_size=3, fisher_size=8, bfgs_upd_freq=2,
+                       max_incr=1.01, rmsprop_weight=0.9, pairs_bf16=True,
+                       fisher_bf16=True)),
+    "sqn_4x1": ("SQN", (4, 1), (63, 4, 16, 4, 0),
+                dict(mem_size=10, bfgs_upd_freq=2)),
+    "olbfgs_2x2": ("oLBFGS", (2, 2), (63, 8, 8, 4, 2),
+                   dict(mem_size=4, min_curvature=1e-8,
+                        pairs_interleaved=True, pairs_bf16=True)),
+    "scheduled_2x2": ("SQN", (2, 2), (63, 8, 8, 4, 0),
+                      dict(mem_size=10, bfgs_upd_freq=2)),
+    "sparse_2x2": ("SQN", (2, 2), None, dict(mem_size=3, bfgs_upd_freq=2)),
+}
+DRYRUN_REG = 1e-1
+DRYRUN_STEP = 0.05
+# bfloat16 oLBFGS forks on float32 summation order (the JAX package forks
+# from itself so; ROADMAP, queue C), so that case runs its data and x0 in
+# float64, its pairs still bfloat16, where both packages' sums agree.
+DRYRUN_F64 = ("olbfgs_2x2",)
+
+
+def dryrun_data(name):
+    """``(x0, data)`` of a DRYRUN case as ``__graft_entry__`` draws them
+    (float32): ``data`` is ``(X [B, bs, f], Y [B, bs, C])``; for
+    "scheduled" ``(flat_rows, orders, steps)``; for "sparse" ``(idx, val,
+    Y)`` padded COO ``[4, 8, 8]`` (the scheduled case's generator, used on
+    after its orders, as ``dryrun_multichip`` does)."""
+    if name == "sparse_2x2":
+        _, _, rng = _scheduled_draws()
+        nf, C, k, bs = 63, 8, 8, 8
+        rows = 4 * bs
+        dense = np.zeros((rows, nf), np.float32)
+        for r in range(rows):
+            cols = rng.choice(nf, size=k // 2, replace=False)
+            dense[r, cols] = rng.standard_normal(k // 2)
+        idx = np.zeros((rows, k), np.int64)
+        val = np.zeros((rows, k), np.float32)
+        for r in range(rows):
+            nz = np.flatnonzero(dense[r])
+            idx[r, :nz.size], val[r, :nz.size] = nz, dense[r, nz]
+        hot = np.eye(C, dtype=np.float32)[rng.integers(0, C, size=rows)]
+        x0 = rng.standard_normal((nf + 1) * C).astype(np.float32)
+        return x0, (idx.reshape(4, bs, k), val.reshape(4, bs, k),
+                    hot.reshape(4, bs, C))
+    if name == "scheduled_2x2":
+        (x0, (X, Y)), sched, _ = _scheduled_draws()
+        return x0, ((X.reshape(-1, X.shape[-1]), Y.reshape(-1, Y.shape[-1])),
+                    *sched)
+    nf, C, bs, B, seed = DRYRUN[name][2]
+    dtype = np.float64 if name in DRYRUN_F64 else np.float32
+    rng = np.random.default_rng(seed)
+    x0 = rng.standard_normal((nf + 1) * C).astype(np.float32)
+    X = rng.standard_normal((B, bs, nf)).astype(np.float32)
+    Y = np.eye(C)[rng.integers(0, C, size=(B, bs))].astype(np.float32)
+    return x0.astype(dtype), (X.astype(dtype), Y.astype(dtype))
+
+
+def _scheduled_draws():
+    """The scheduled case's data, its two epochs' orders and steps, and the
+    generator they were drawn from, left where ``dryrun_multichip`` leaves
+    it."""
+    x0, data = dryrun_data("sqn_2x2")
+    rng = np.random.default_rng(7)
+    n_rows = data[0].shape[0] * data[0].shape[1]
+    orders = np.stack([rng.permutation(n_rows) for _ in range(2)])
+    steps = np.array([0.05, 0.05 / np.sqrt(2.0)], np.float32)
+    return (x0, data), (orders, steps), rng
+
+
+# The three optimizers on each mesh of 4 ranks, on a float64 quadratic,
+# the mean over the rows of 0.5 (x - b)' A (x - b): name -> (optimizer,
+# mesh, config).  oLBFGS keeps bfloat16 interleaved pairs.
+GRID_OPTIMIZERS = {
+    "SQN": dict(mem_size=3, bfgs_upd_freq=2),
+    "adaQN": dict(mem_size=3, fisher_size=4, bfgs_upd_freq=2, max_incr=1.01,
+                  rmsprop_weight=0.9),
+    "oLBFGS": dict(mem_size=3, min_curvature=1e-8, pairs_interleaved=True,
+                   pairs_bf16=True),
+}
+GRID_MESHES = ((4, 1), (1, 4), (2, 2))
+GRID = {f"{opt.lower()}_{d}x{p}": (opt, (d, p), cfg)
+        for opt, cfg in GRID_OPTIMIZERS.items() for d, p in GRID_MESHES}
+GRID_N, GRID_B, GRID_BS = 16, 6, 8
+GRID_STEPS = (0.05, 0.03)       # jit_epochs for 2 epochs, then jit_epoch
+
+
+def grid_data():
+    """``(a [n, n], x0, data [B, bs, n])`` in float64."""
+    return (quad(21, GRID_N), np.zeros(GRID_N),
+            batches(22, (GRID_B, GRID_BS, GRID_N), np.float64))
 
 
 # ---------------------------------------------------------------------------
@@ -595,6 +747,148 @@ def _torch_cases():
             equal_full), keys=np.array(sorted(flat)),
             x_continued=gathered(go_on, m), x_resumed=gathered(resumed, m))
 
+    # -- the programs on a mesh, on the graph driver (the stand-in for the
+    #    capture), against the same rank's eager epochs --------------------
+    def programs(make, shape, x0, run_eager, run_graph):
+        """``run_graph(trainer, state)`` on the graph driver against
+        ``run_eager`` on another trainer, both from ``x0`` and recorded:
+        the same bits, the same collectives in order."""
+        from stochqn_tpu_torch.graphs import flatten
+        m = mesh(shape)
+        with graph_stand_in():
+            eager, graphed = make(m), make(m)
+            with record_collectives() as elog:
+                ref, ref_infos = run_eager(eager, eager.init(x0))
+            with record_collectives() as glog:
+                st, infos = run_graph(graphed, graphed.init(x0))
+        progs = graphed._programs
+        same = torch.equal(infos, ref_infos) and all(
+            torch.equal(a, b) for a, b in zip(flatten(st)[0],
+                                              flatten(ref)[0]))
+        keys = {k[-1] for k in progs.families}
+        return dict(x=gathered(st, m), infos=infos.numpy(),
+                    niter=st.niter.numpy(), same=np.bool_(same),
+                    same_log=np.bool_(glog == elog and len(glog) > 0),
+                    mesh_keys=np.array(sorted(keys)),
+                    graphs=np.int64(len(progs.graphs())),
+                    replays=np.int64(sum(g.replays
+                                         for g in progs.graphs())))
+
+    def graphs_dryrun():
+        """``dryrun_multichip``'s six cases through ``jit_epochs`` (and
+        ``jit_epochs_scheduled``), 2 epochs each."""
+        from stochqn_tpu_torch.models.losses import (
+            multinomial_logistic_grad, multinomial_logistic_loss)
+        out = {}
+        for name, (opt, shape, _, cfg_kw) in DRYRUN.items():
+            x0, data = dryrun_data(name)
+            n_data = shape[0]
+            reg = DRYRUN_REG / n_data   # summed over the data ranks: once
+            if name == "sparse_2x2":
+                def grad_fn(x, b):
+                    return sp.sparse_multinomial_logistic_grad(
+                        x, b[0], b[1], b[2], 63, reg_param=reg)
+                data = (T(data[0]), T(data[1]), T(data[2]))
+            else:
+                def grad_fn(x, b):
+                    return multinomial_logistic_grad(x, b[0], b[1], None, reg)
+
+            def obj_fn(x, b):
+                return multinomial_logistic_loss(x, b[0], b[1], None, reg)
+            cfg = {"SQN": SQNConfig, "adaQN": AdaQNConfig,
+                   "oLBFGS": OLBFGSConfig}[opt].create(**cfg_kw)
+
+            def make(m, opt=opt, cfg=cfg, grad_fn=grad_fn):
+                return FusedTrainer(opt, cfg, grad_fn, mesh=m,
+                                    obj_fn=obj_fn if opt == "adaQN" else None)
+            if name == "scheduled_2x2":
+                flat, orders, steps = data
+                flat, orders, steps = (T(flat[0]), T(flat[1])), T(orders), \
+                    T(steps)
+                bs = DRYRUN[name][2][2]
+
+                def run_eager(tr, st):
+                    return tr.epochs_scheduled(st, flat, steps, orders, bs,
+                                               aligned=True)
+
+                def run_graph(tr, st):
+                    return tr.jit_epochs_scheduled()(st, flat, steps, orders,
+                                                     bs, aligned=True)
+            else:
+                data = shard_batches(tuple(T(a) for a in data), mesh(shape))
+
+                def run_eager(tr, st, data=data):
+                    return tr.epochs(st, data, DRYRUN_STEP, 2, aligned=True)
+
+                def run_graph(tr, st, data=data):
+                    return tr.jit_epochs()(st, data, DRYRUN_STEP, 2,
+                                           aligned=True)
+            res = programs(make, shape, T(x0), run_eager, run_graph)
+            out.update({f"{name}_{k}": v for k, v in res.items()})
+        return out
+
+    def graphs_grid():
+        """SQN, adaQN and oLBFGS (bfloat16 interleaved pairs) on meshes
+        4 x 1, 1 x 4 and 2 x 2: ``jit_epochs`` for 2 epochs, then
+        ``jit_epoch`` at another step on the cached graph."""
+        a_np, x0, data_np = grid_data()
+        a = T(a_np)
+
+        def grad_fn(x, b):
+            return a @ (x - b.mean(0))
+
+        def obj_fn(x, b):       # a mean over the rows, as "mean" sums it
+            r = x[None, :] - b
+            return 0.5 * torch.einsum("bi,ij,bj->b", r, a, r).mean()
+        out = {}
+        for name, (opt, shape, cfg_kw) in GRID.items():
+            cfg = {"SQN": SQNConfig, "adaQN": AdaQNConfig,
+                   "oLBFGS": OLBFGSConfig}[opt].create(**cfg_kw)
+
+            def make(m, opt=opt, cfg=cfg):
+                return FusedTrainer(opt, cfg, grad_fn, obj_fn=obj_fn, mesh=m,
+                                    reduction="mean")
+            data = shard_batches(T(data_np), mesh(shape))
+
+            def run(epochs, epoch, st):
+                st, i1 = epochs(st, data, GRID_STEPS[0], 2)
+                st, i2 = epoch(st, data, GRID_STEPS[1])
+                return st, torch.cat([i1, i2[None]])
+            res = programs(
+                make, shape, T(x0),
+                lambda tr, st: run(tr.epochs, tr.epoch, st),
+                lambda tr, st: run(tr.jit_epochs(), tr.jit_epoch(), st))
+            out.update({f"{name}_{k}": v for k, v in res.items()})
+        return out
+
+    def graphs_order():
+        """Epochs that start at other phases (5 batches, L = 2; an epoch of
+        3 batches first): every rank replays the same layouts in the same
+        order, as the eager epochs take them."""
+        a_np, x0, data_np = grid_data()
+        a = T(a_np)
+
+        def grad_fn(x, b):
+            return a @ (x - b.mean(0))
+        shape = (2, 2)
+        data = shard_batches(T(data_np[:5]), mesh(shape))
+
+        def make(m):
+            return FusedTrainer("SQN", SQNConfig.create(
+                **GRID_OPTIMIZERS["SQN"]), grad_fn, mesh=m, reduction="mean")
+
+        def run(epoch, epochs, st):
+            st, i1 = epoch(st, data[:3], GRID_STEPS[0])
+            st, i2 = epochs(st, data, GRID_STEPS[1], 3)
+            return st, torch.cat([i1, i2.reshape(-1)])
+        REPLAYED.clear()
+        res = programs(make, shape, T(x0),
+                       lambda tr, st: run(tr.epoch, tr.epochs, st),
+                       lambda tr, st: run(tr.jit_epoch(), tr.jit_epochs(),
+                                          st))
+        res["layouts"] = np.array(REPLAYED, np.int64)
+        return res
+
     cases = {
         "parallel": [("dp_eval", dp_eval), ("two_loop_param", two_loop_param),
                      ("fused_epoch", fused_epoch),
@@ -602,7 +896,10 @@ def _torch_cases():
                      ("scheduled", scheduled), ("sparse_sqn", sparse_sqn),
                      ("logistic", logistic), ("guided", guided),
                      ("minimize", minimize_case), ("recorder", recorder),
-                     ("guard", guard), ("layouts", layouts)]
+                     ("guard", guard), ("layouts", layouts),
+                     ("graphs_dryrun", graphs_dryrun),
+                     ("graphs_grid", graphs_grid),
+                     ("graphs_order", graphs_order)]
         + [(name, lambda name=name: budget(name)) for name in BUDGETS],
         "dist2": [(f"{opt}_{topo}", lambda opt=opt, shape=shape:
                    dist_case(opt, shape))
