@@ -15,6 +15,7 @@ import numbers
 import torch
 
 from stochqn_tpu_torch.core.enums import Info, Task
+from stochqn_tpu_torch.utils import metrics
 
 NO_PROBLEMS = int(Info.NO_PROBLEMS_ENCOUNTERED)
 
@@ -58,8 +59,10 @@ def select(pred: torch.Tensor, if_true, if_false):
 
 
 def host_ints(*scalars: torch.Tensor) -> list:
-    """The integer scalars as Python ints, in one read of the device."""
-    return torch.stack(scalars).tolist()
+    """The integer scalars as Python ints, in one read of the device
+    (:func:`~stochqn_tpu_torch.utils.metrics.host_read`)."""
+    with metrics.host_read():
+        return torch.stack(scalars).tolist()
 
 
 def scalar_like(value, x: torch.Tensor) -> torch.Tensor:

@@ -48,6 +48,7 @@ from stochqn_tpu_torch.core.state import SQNState
 from stochqn_tpu_torch.ops.pairs import (commit_pair, conditional_flush,
                                          direction_is_bad)
 from stochqn_tpu_torch.ops.two_loop import two_loop_cached
+from stochqn_tpu_torch.utils.metrics import label
 
 
 def init(x0: torch.Tensor, cfg: SQNConfig) -> SQNState:
@@ -64,13 +65,18 @@ def step(cfg: SQNConfig, state: SQNState, grad: torch.Tensor,
     magnitude guard, ``x`` and ``x_sum`` updates, ``section = 1``.
     ``comm``: the mesh of a sharded run
     (:mod:`stochqn_tpu_torch.ops.two_loop`).
-    Returns ``(state, bad)``; nothing is read on the host."""
-    d = two_loop_cached(grad, state.mem, collapsed=True, comm=comm)
-    bad = direction_is_bad(d, comm) if cfg.check_nan else no_bad(d)
-    x_new = torch.where(bad, state.x, state.x - step_size * d)
-    state = state.replace(x=x_new, mem=conditional_flush(state.mem, bad),
-                          niter=state.niter + 1, x_sum=state.x_sum + x_new,
-                          section=torch.ones_like(state.section))
+    Returns ``(state, bad)``; nothing is read on the host.  In a captured
+    epoch its nodes are labelled ``direction``, ``guard`` and ``update``."""
+    with label("direction"):
+        d = two_loop_cached(grad, state.mem, collapsed=True, comm=comm)
+    with label("guard"):
+        bad = direction_is_bad(d, comm) if cfg.check_nan else no_bad(d)
+    with label("update"):
+        x_new = torch.where(bad, state.x, state.x - step_size * d)
+        state = state.replace(x=x_new, mem=conditional_flush(state.mem, bad),
+                              niter=state.niter + 1,
+                              x_sum=state.x_sum + x_new,
+                              section=torch.ones_like(state.section))
     return state, bad
 
 

@@ -97,6 +97,7 @@ from stochqn_tpu_torch.parallel.evaluate import (data_parallel_grad,
                                                  data_parallel_value)
 from stochqn_tpu_torch.parallel.mesh import (MeshComm, shard_batches,
                                              shard_state)
+from stochqn_tpu_torch.utils.metrics import host_read, label
 
 Batch = Any
 GradFn = Callable[[torch.Tensor, Batch], torch.Tensor]
@@ -247,8 +248,11 @@ def _olbfgs_epoch_paired(cfg: OLBFGSConfig, grad_fn: GradFn,
 def _sqn_base(cfg: SQNConfig, grad_fn: GradFn, state: SQNState,
               batch: Batch, step_size: torch.Tensor, comm=None
               ) -> Tuple[SQNState, torch.Tensor]:
-    """The minibatch gradient and :func:`core.sqn.step` on it."""
-    return sqn.step(cfg, state, grad_fn(state.x, batch), step_size, comm)
+    """The minibatch gradient (labelled ``gradient`` in a captured epoch)
+    and :func:`core.sqn.step` on it."""
+    with label("gradient"):
+        g = grad_fn(state.x, batch)
+    return sqn.step(cfg, state, g, step_size, comm)
 
 
 def _sqn_boundary(cfg: SQNConfig, grad_fn: GradFn, state: SQNState,
@@ -375,9 +379,11 @@ def sqn_step(cfg: SQNConfig, grad_fn: GradFn, state: SQNState, batch: Batch,
     read from ``state.niter``)."""
     state, bad = _sqn_base(cfg, grad_fn, state, batch, step_size, comm)
     if not boundary:
-        return state, step_info(bad)
-    return _sqn_boundary(cfg, grad_fn, state, big_batch_thunk(), bad,
-                         hess_vec_fn, comm)
+        with label("infos"):
+            return state, step_info(bad)
+    with label("boundary"):
+        return _sqn_boundary(cfg, grad_fn, state, big_batch_thunk(), bad,
+                             hess_vec_fn, comm)
 
 
 def adaqn_step(cfg: AdaQNConfig, grad_fn: GradFn, obj_fn: Optional[ObjFn],
@@ -560,17 +566,21 @@ class FusedTrainer:
             state, bad = base(self.cfg, self._grad, state,
                               _batch_at(round_data, i), eta, comm)
             bads.append(bad)
-        big = _flat(round_data)
-        if self.optimizer == "SQN":
-            state, binfo = _sqn_boundary(self.cfg, self._grad, state, big,
-                                         bads[-1], self._hvp, comm)
-        else:
-            fval, obj = ((self.val_data, self._val_obj)
-                         if self.val_data is not None else (big, self._obj))
-            state, binfo = _adaqn_boundary(self.cfg, self._grad, obj, state,
-                                           big, fval, bads[-1], comm)
-        infos = step_info(torch.stack(bads))
-        infos[L - 1] = binfo
+        with label("boundary"):
+            big = _flat(round_data)
+            if self.optimizer == "SQN":
+                state, binfo = _sqn_boundary(self.cfg, self._grad, state,
+                                             big, bads[-1], self._hvp, comm)
+            else:
+                fval, obj = ((self.val_data, self._val_obj)
+                             if self.val_data is not None
+                             else (big, self._obj))
+                state, binfo = _adaqn_boundary(self.cfg, self._grad, obj,
+                                               state, big, fval, bads[-1],
+                                               comm)
+        with label("infos"):
+            infos = step_info(torch.stack(bads))
+            infos[L - 1] = binfo
         return state, infos
 
     def _epoch_chunked(self, state, data, step_size, num_batches, L):
@@ -581,7 +591,8 @@ class FusedTrainer:
         for r in range(rounds):
             state, inf = self.round(state, _batch_at(data_r, r), step_size)
             infos.append(inf)
-        return state, torch.cat(infos)
+        with label("infos"):
+            return state, torch.cat(infos)
 
     def _epoch_generic(self, state, data, step_size, phase: int
                        ) -> Tuple[Any, torch.Tensor]:
@@ -611,7 +622,8 @@ class FusedTrainer:
                                          _batch_at(data, i), big, fval, eta,
                                          phase == 0, self._comm)
             infos.append(info)
-        return state, torch.stack(infos)
+        with label("infos"):
+            return state, torch.stack(infos)
 
     def _local(self, data):
         """This rank's rows of batched data (all of them with no mesh)."""
@@ -623,7 +635,8 @@ class FusedTrainer:
         boundary), else read from the state (one host read)."""
         if aligned is True or self.optimizer == "oLBFGS":
             return 0
-        return int(state.niter) % self.cfg.upd_freq
+        with host_read():
+            return int(state.niter) % self.cfg.upd_freq
 
     def _layout(self, num_batches: int, phase: int, generic: bool) -> tuple:
         """``(generic, phase)`` of the epoch :meth:`_epoch_at` runs from

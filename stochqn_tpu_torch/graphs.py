@@ -46,7 +46,11 @@ Kernel launches: a kernel wrapper called inside a capture records its
 launch with the graph (:data:`~stochqn_tpu_torch.ops.kernels.
 two_loop_kernel.CAPTURED`) instead of counting it, and every replay
 counts the launches its graph holds.  :data:`STATS` keeps what the
-programs did since :func:`reset_stats`.
+programs did since :func:`reset_stats`, and the label map of every graph
+captured (:func:`stochqn_tpu_torch.utils.metrics.label`).  A call is the
+span ``stochqn.jit_epochs`` over its host read, loads, warm-ups, captures
+and replays, and the bytes copied into the buffers and back are counted
+(:mod:`stochqn_tpu_torch.utils.metrics`).
 
 On a mesh (``FusedTrainer(mesh=...)``) whose groups are NCCL, the epoch's
 collectives are captured with it: ``ProcessGroupNCCL`` runs each on its
@@ -87,17 +91,19 @@ import torch
 
 from stochqn_tpu_torch.ops.kernels import two_loop_kernel as tlk
 from stochqn_tpu_torch.parallel import comm
+from stochqn_tpu_torch.utils import metrics
 
 # Since the last reset_stats(): graphs captured and replays, the seconds
-# spent capturing and instantiating graphs and warming them up, and the
+# spent capturing and instantiating graphs and warming them up, the
 # kernel launches (by counter name of ops.kernels.two_loop_kernel) made by
-# warm-up epochs and by replays.
+# warm-up epochs and by replays, and each graph's label map
+# ``(node_count, [(label, first, end), ...])`` in the order captured.
 STATS: Dict[str, Any] = {}
 
 
 def reset_stats() -> None:
     STATS.update(captures=0, replays=0, capture_s=0.0, warm_s=0.0,
-                 warm_launches={}, replay_launches={})
+                 warm_launches={}, replay_launches={}, labels=[])
 
 
 reset_stats()
@@ -224,7 +230,6 @@ class _Graph:
     (state, infos)`` on the family's buffers."""
 
     def __init__(self, family: "_Family", run: Callable):
-        trainer = family.trainer
         device = family.device
         cap = _capture_stream(device)
         cur = torch.cuda.current_stream(device)
@@ -233,44 +238,15 @@ class _Graph:
         t0 = time.perf_counter()
         with torch.cuda.stream(cap):
             # the warm-up epoch, on a scratch copy of the loaded state
-            run(copy_tree(family.state_tree()), family.inputs_tree(),
-                family.eta)
+            with metrics.span("stochqn.warmup"):
+                run(copy_tree(family.state_tree()), family.inputs_tree(),
+                    family.eta)
             self.warm_launches = {k: v - counted[k]
                                   for k, v in tlk.read_launches().items()
                                   if v != counted[k]}
             t1 = time.perf_counter()
-            self.graph = torch.cuda.CUDAGraph()
-            tlk.CAPTURED.clear()
-            comm.CAPTURED.clear()
-            # No garbage collection while capturing: collecting another
-            # trainer's graph destroys it, which CUDA refuses during a
-            # capture, and the capture is lost.
-            collecting = gc.isenabled()
-            gc.collect()
-            gc.disable()
-            try:
-                # on a mesh NCCL's watchdog thread queries events while
-                # this thread captures: global mode would void the capture
-                self.graph.capture_begin(capture_error_mode=(
-                    "global" if trainer.mesh is None else "thread_local"))
-                try:
-                    out, self.infos = run(family.state_tree(),
-                                          family.inputs_tree(), family.eta)
-                    self.copy_bytes = family.write_back(out)
-                except BaseException as err:
-                    try:
-                        self.graph.capture_end()
-                    except Exception:  # noqa: BLE001 - the capture is void
-                        pass
-                    raise _capture_error(trainer, err) from err
-                self.graph.capture_end()
-            finally:
-                if collecting:
-                    gc.enable()
-            self.launches = dict(tlk.CAPTURED)
-            self.collectives = list(comm.CAPTURED)
-            tlk.CAPTURED.clear()
-            comm.CAPTURED.clear()
+            with metrics.span("stochqn.capture"):
+                self._capture(family, run, cap)
         cur.wait_stream(cap)
         self.warm_s = t1 - t0
         self.capture_s = time.perf_counter() - t1
@@ -279,6 +255,49 @@ class _Graph:
         STATS["capture_s"] += self.capture_s
         STATS["warm_s"] += self.warm_s
         _add(STATS["warm_launches"], self.warm_launches)
+        STATS["labels"].append(self.labels)
+
+    def _capture(self, family: "_Family", run: Callable,
+                 cap: "torch.cuda.Stream") -> None:
+        """The capture of ``run`` on the family's buffers, on ``cap``,
+        its write-back included, and the graph's label map."""
+        trainer = family.trainer
+        nodes = metrics.GraphNodes(cap)
+        self.graph = torch.cuda.CUDAGraph()
+        tlk.CAPTURED.clear()
+        comm.CAPTURED.clear()
+        # No garbage collection while capturing: collecting another
+        # trainer's graph destroys it, which CUDA refuses during a
+        # capture, and the capture is lost.
+        collecting = gc.isenabled()
+        gc.collect()
+        gc.disable()
+        try:
+            # on a mesh NCCL's watchdog thread queries events while
+            # this thread captures: global mode would void the capture
+            self.graph.capture_begin(capture_error_mode=(
+                "global" if trainer.mesh is None else "thread_local"))
+            try:
+                with metrics.capturing(nodes) as c:
+                    out, self.infos = run(family.state_tree(),
+                                          family.inputs_tree(),
+                                          family.eta)
+                    self.copy_bytes = family.write_back(out)
+                    self.labels = c.map()
+            except BaseException as err:
+                try:
+                    self.graph.capture_end()
+                except Exception:  # noqa: BLE001 - the capture is void
+                    pass
+                raise _capture_error(trainer, err) from err
+            self.graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
+        self.launches = dict(tlk.CAPTURED)
+        self.collectives = list(comm.CAPTURED)
+        tlk.CAPTURED.clear()
+        comm.CAPTURED.clear()
 
     def replay(self) -> torch.Tensor:
         """One epoch on the family's buffers; returns the graph's infos
@@ -320,26 +339,33 @@ class _Family:
         skipping the state where it is these buffers and a data tensor
         that is the one copied last time, unmodified since."""
         leaves, _ = flatten(state)
+        nbytes = 0
         if not all(a is b for a, b in zip(leaves, self.state)):
             for dst, src in zip(self.state, leaves):
                 dst.copy_(src)
-                self.copy_in_bytes += dst.nbytes
+                nbytes += dst.nbytes
         for i, src in enumerate(flatten(inputs)[0]):
             seen = self.loaded[i]
             if seen is not None and seen[0]() is src and \
                     seen[1] == src._version:
                 continue
             self.inputs[i].copy_(src)
-            self.copy_in_bytes += src.nbytes
+            nbytes += src.nbytes
             self.loaded[i] = (weakref.ref(src), src._version)
         self.eta.copy_(eta)
+        self.copy_in_bytes += nbytes
+        metrics.count("copy_in_bytes", nbytes)
 
     def write_back(self, out) -> int:
         """Inside the capture: copy the epoch's output state into the
         state buffers (an output that is its own buffer, updated in place,
         stays).  An output that shares another buffer's storage is staged
         first, so no copy reads a buffer an earlier copy wrote.  Returns
-        the bytes copied per replay."""
+        the bytes copied per replay.  Labelled ``copy_back``."""
+        with metrics.label("copy_back"):
+            return self._write_back(out)
+
+    def _write_back(self, out) -> int:
         leaves, spec = flatten(out)
         if spec != self.state_spec or [(t.shape, t.dtype) for t in leaves] \
                 != [(t.shape, t.dtype) for t in self.state]:
@@ -406,17 +432,23 @@ class EpochPrograms:
         capture.  The start phase is resolved once, as the eager driver
         resolves it.  With ``donate`` the returned state is the family's
         buffers; otherwise a copy of them."""
-        tr = self.trainer
-        phase = tr._phase(state, aligned)
-        L = tr.cfg.upd_freq
-        infos = torch.empty((nepochs, num_batches),
-                            dtype=torch.int32, device=state.x.device)
-        for e, inputs in enumerate(epoch_inputs):
-            fam = self.family(kind, state, inputs, state.x.dtype,
-                              epoch_fn, static)
-            fam.load(state, inputs, steps[e])
-            layout = tr._layout(num_batches, phase, aligned is False)
-            infos[e].copy_(fam.graph(layout).replay())
-            state = fam.state_tree()
-            phase = (phase + num_batches) % L
-        return (state if donate else copy_tree(state)), infos
+        with metrics.span("stochqn.jit_epochs"):
+            tr = self.trainer
+            phase = tr._phase(state, aligned)
+            L = tr.cfg.upd_freq
+            infos = torch.empty((nepochs, num_batches),
+                                dtype=torch.int32, device=state.x.device)
+            for e, inputs in enumerate(epoch_inputs):
+                fam = self.family(kind, state, inputs, state.x.dtype,
+                                  epoch_fn, static)
+                with metrics.span("stochqn.load"):
+                    fam.load(state, inputs, steps[e])
+                layout = tr._layout(num_batches, phase, aligned is False)
+                graph = fam.graph(layout)
+                with metrics.span("stochqn.replay"):
+                    out = graph.replay()
+                metrics.count("copy_back_bytes", graph.copy_bytes)
+                infos[e].copy_(out)
+                state = fam.state_tree()
+                phase = (phase + num_batches) % L
+            return (state if donate else copy_tree(state)), infos

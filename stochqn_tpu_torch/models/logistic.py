@@ -42,7 +42,7 @@ from stochqn_tpu_torch.parallel.mesh import (MeshComm, gather_state,
                                              mesh_shape, shard_batches)
 from stochqn_tpu_torch.models import losses
 from stochqn_tpu_torch.models import sparse as sparse_losses
-from stochqn_tpu_torch.utils.metrics import LossHistory
+from stochqn_tpu_torch.utils.metrics import LossHistory, span
 from stochqn_tpu_torch.utils.schedules import step_size_const, step_size_sqrt
 
 
@@ -322,6 +322,18 @@ class StochasticLogisticRegression:
     def fit(self, X, y, sample_weight=None):
         """Fit in stochastic batches over multiple epochs (the protocol or
         the fused engine, as ``engine`` says)."""
+        if self.engine == "fused":
+            with span("stochqn.fit"):
+                return self._fit_fused(X, y, sample_weight)
+        X, y, sample_weight = self._checked(X, y, sample_weight)
+        self._initialize_optimizer(X, y)
+        self.optimizer.fit(X, y, sample_weight,
+                           {"reg_param": self.reg_param})
+        self.is_fitted = True
+        return self
+
+    def _checked(self, X, y, sample_weight):
+        """The inputs checked, and a sparse ``X``'s padded width pinned."""
         X, y, sample_weight = self._check_inputs(X, y, sample_weight)
         if issparse(X):
             # pin the padded width from the full matrix: every batch then
@@ -329,116 +341,123 @@ class StochasticLogisticRegression:
             Xr = X.tocsr()
             knz = int(np.diff(Xr.indptr).max()) if Xr.shape[0] else 1
             self._pad_k = max(8, -(-knz // 8) * 8)
-        if self.engine == "fused":
-            return self._fit_fused(X, y, sample_weight)
-        self._initialize_optimizer(X, y)
-        self.optimizer.fit(X, y, sample_weight,
-                           {"reg_param": self.reg_param})
-        self.is_fitted = True
-        return self
+        return X, y, sample_weight
 
     def _fit_fused(self, X, y, sample_weight):
-        kw = dict(self.optimizer_kwargs)
-        step_size = kw.pop("step_size")
-        valset_frac = kw.pop("valset_frac", None)
-        verbose = kw.pop("verbose", False)
-        nepochs = kw.pop("nepochs", 25)
-        batches_per_epoch = kw.pop("batches_per_epoch", 25)
-        decr_step_size = kw.pop("decr_step_size", "auto")
-        tol = kw.pop("tol", 1e-1)
-        shuffle = kw.pop("shuffle_data", True)
-        kw.pop("random_state", None)
-        if decr_step_size == "auto":
-            decr = step_size_sqrt
-        elif decr_step_size is None:
-            decr = step_size_const
-        else:
-            decr = decr_step_size
+        """The fused fit, in the spans ``stochqn.fit.prepare`` (everything
+        before the first epoch: the inputs checked, ``X``, ``y`` and the
+        weights on the device, the trainer, its state and the batches),
+        ``stochqn.fit.epochs`` and ``stochqn.fit.finish`` (the
+        coefficients back on the host)."""
+        with span("stochqn.fit.prepare"):
+            X, y, sample_weight = self._checked(X, y, sample_weight)
+            kw = dict(self.optimizer_kwargs)
+            step_size = kw.pop("step_size")
+            valset_frac = kw.pop("valset_frac", None)
+            verbose = kw.pop("verbose", False)
+            nepochs = kw.pop("nepochs", 25)
+            batches_per_epoch = kw.pop("batches_per_epoch", 25)
+            decr_step_size = kw.pop("decr_step_size", "auto")
+            tol = kw.pop("tol", 1e-1)
+            shuffle = kw.pop("shuffle_data", True)
+            kw.pop("random_state", None)
+            if decr_step_size == "auto":
+                decr = step_size_sqrt
+            elif decr_step_size is None:
+                decr = step_size_const
+            else:
+                decr = decr_step_size
 
-        w0 = self._initial_weights(X, y)
-        dtype, device = self.dtype, self.device
-        # CSR input trains through the padded-COO sparse forms: features
-        # become (indices, values) leaves and no dense [n, n_features]
-        # matrix ever exists on the device.
-        feats = self._features(X)
-        loss_core, grad_core, hess_core = self._cores(issparse(X), X.shape[1])
-        if self._is_mult:
-            Yd = self._tensor(y)
-        else:
-            Yd = self._tensor(2.0 * (np.asarray(y) > 0) - 1.0)
-        Wd = self._tensor(sample_weight)
-        reg = self.reg_param
-        # on a mesh the ranks' results are summed: each carries its share
-        # of the penalty
-        reg_rank = reg if self.mesh is None else reg / MeshComm(
-            self.mesh).n_data
+            w0 = self._initial_weights(X, y)
+            dtype, device = self.dtype, self.device
+            # CSR input trains through the padded-COO sparse forms:
+            # features become (indices, values) leaves and no dense
+            # [n, n_features] matrix ever exists on the device.
+            feats = self._features(X)
+            loss_core, grad_core, hess_core = self._cores(issparse(X),
+                                                          X.shape[1])
+            if self._is_mult:
+                Yd = self._tensor(y)
+            else:
+                Yd = self._tensor(2.0 * (np.asarray(y) > 0) - 1.0)
+            Wd = self._tensor(sample_weight)
+            reg = self.reg_param
+            # on a mesh the ranks' results are summed: each carries its
+            # share of the penalty
+            reg_rank = reg if self.mesh is None else reg / MeshComm(
+                self.mesh).n_data
 
-        has_val = valset_frac is not None
-        if has_val:
-            n_rows = Yd.shape[0]
-            n_val = max(1, int(n_rows * valset_frac))
-            perm = np.random.default_rng(self.random_state).permutation(n_rows)
-            val_idx = torch.as_tensor(perm[:n_val], device=device)
-            tr_idx = torch.as_tensor(perm[n_val:], device=device)
-
-            def rows(t, idx):
-                return t.index_select(0, idx)
-            feats_val = tuple(rows(f, val_idx) for f in feats)
-            Y_val, W_val = rows(Yd, val_idx), rows(Wd, val_idx)
-            feats = tuple(rows(f, tr_idx) for f in feats)
-            Yd, Wd = rows(Yd, tr_idx), rows(Wd, tr_idx)
-
-        def grad_fn(x, batch):
-            *fb, Yb, wb = batch
-            return grad_core(x, *fb, Yb, wb, reg_rank)
-
-        def obj_fn(x, batch):
-            *fb, Yb, wb = batch
-            return loss_core(x, *fb, Yb, wb, reg_rank)
-
-        def hess_vec_fn(x, v, batch):
-            # Closed-form Hessian-vector product: the same function the
-            # protocol engine gets via _build_funs (and the reference via
-            # its hess_vec_fun callback, src/stochqn.c:1105).
-            *fb, Yb, wb = batch
-            return hess_core(x, v, *fb, Yb, wb, reg_rank)
-
-        cfg_cls = {"oLBFGS": OLBFGSConfig, "SQN": SQNConfig,
-                   "adaQN": AdaQNConfig}[self.optimizer_name]
-        trainer = FusedTrainer(self.optimizer_name, cfg_cls.create(**kw),
-                               grad_fn, obj_fn=obj_fn,
-                               hess_vec_fn=hess_vec_fn, mesh=self.mesh)
-        state = trainer.init(torch.as_tensor(w0, dtype=dtype, device=device))
-
-        batch_size = max(1, Yd.shape[0] // int(batches_per_epoch))
-        data = batchify((*feats, Yd, Wd), batch_size)
-        upd_freq = getattr(trainer.cfg, "upd_freq", 1)
-        history = LossHistory(tol)
-        gen = torch.Generator(device=device)
-        gen.manual_seed(1 if self.random_state is None
-                        else int(self.random_state))
-        niter = 0                        # a fresh state; counted here
-        num_batches = Yd.shape[0] // batch_size
-        epoch_fn = trainer.epoch if trainer.eager_only else trainer.jit_epoch()
-        for epoch in range(int(nepochs)):
-            d = shuffle_batched(data, gen) if shuffle else data
-            if self.mesh is not None:       # this rank's rows
-                d = shard_batches(d, self.mesh)
-            state, _ = epoch_fn(state, d, decr(step_size, epoch),
-                                aligned=niter % upd_freq == 0)
-            niter += num_batches
+            has_val = valset_frac is not None
             if has_val:
-                x = state.x if self.mesh is None else MeshComm(
-                    self.mesh).gather_param([state.x], "gather x")[0]
-                lv = float(loss_core(x, *feats_val, Y_val, W_val, reg))
-                if verbose:
-                    print(f"{self.optimizer_name} - epoch {epoch + 1:2d}, "
-                          f"val f(x): {lv:.6f}")
-                if history.update(lv):
-                    break
-        if self.mesh is not None:
-            state = gather_state(state, self.mesh)
-        self._x_fused = _numpy(state.x).astype(np.float64)
+                n_rows = Yd.shape[0]
+                n_val = max(1, int(n_rows * valset_frac))
+                perm = np.random.default_rng(
+                    self.random_state).permutation(n_rows)
+                val_idx = torch.as_tensor(perm[:n_val], device=device)
+                tr_idx = torch.as_tensor(perm[n_val:], device=device)
+
+                def rows(t, idx):
+                    return t.index_select(0, idx)
+                feats_val = tuple(rows(f, val_idx) for f in feats)
+                Y_val, W_val = rows(Yd, val_idx), rows(Wd, val_idx)
+                feats = tuple(rows(f, tr_idx) for f in feats)
+                Yd, Wd = rows(Yd, tr_idx), rows(Wd, tr_idx)
+
+            def grad_fn(x, batch):
+                *fb, Yb, wb = batch
+                return grad_core(x, *fb, Yb, wb, reg_rank)
+
+            def obj_fn(x, batch):
+                *fb, Yb, wb = batch
+                return loss_core(x, *fb, Yb, wb, reg_rank)
+
+            def hess_vec_fn(x, v, batch):
+                # Closed-form Hessian-vector product: the same function the
+                # protocol engine gets via _build_funs (and the reference via
+                # its hess_vec_fun callback, src/stochqn.c:1105).
+                *fb, Yb, wb = batch
+                return hess_core(x, v, *fb, Yb, wb, reg_rank)
+
+            cfg_cls = {"oLBFGS": OLBFGSConfig, "SQN": SQNConfig,
+                       "adaQN": AdaQNConfig}[self.optimizer_name]
+            trainer = FusedTrainer(self.optimizer_name, cfg_cls.create(**kw),
+                                   grad_fn, obj_fn=obj_fn,
+                                   hess_vec_fn=hess_vec_fn, mesh=self.mesh)
+            state = trainer.init(torch.as_tensor(w0, dtype=dtype,
+                                                 device=device))
+
+            batch_size = max(1, Yd.shape[0] // int(batches_per_epoch))
+            data = batchify((*feats, Yd, Wd), batch_size)
+            upd_freq = getattr(trainer.cfg, "upd_freq", 1)
+            history = LossHistory(tol)
+            gen = torch.Generator(device=device)
+            gen.manual_seed(1 if self.random_state is None
+                            else int(self.random_state))
+            niter = 0                        # a fresh state; counted here
+            num_batches = Yd.shape[0] // batch_size
+            epoch_fn = (trainer.epoch if trainer.eager_only
+                        else trainer.jit_epoch())
+        with span("stochqn.fit.epochs"):
+            for epoch in range(int(nepochs)):
+                d = shuffle_batched(data, gen) if shuffle else data
+                if self.mesh is not None:       # this rank's rows
+                    d = shard_batches(d, self.mesh)
+                state, _ = epoch_fn(state, d, decr(step_size, epoch),
+                                    aligned=niter % upd_freq == 0)
+                niter += num_batches
+                if has_val:
+                    x = state.x if self.mesh is None else MeshComm(
+                        self.mesh).gather_param([state.x], "gather x")[0]
+                    lv = float(loss_core(x, *feats_val, Y_val, W_val, reg))
+                    if verbose:
+                        print(f"{self.optimizer_name} - epoch {epoch + 1:2d}, "
+                              f"val f(x): {lv:.6f}")
+                    if history.update(lv):
+                        break
+        with span("stochqn.fit.finish"):
+            if self.mesh is not None:
+                state = gather_state(state, self.mesh)
+            self._x_fused = _numpy(state.x).astype(np.float64)
         self._fused_state = state
         self.is_fitted = True
         return self

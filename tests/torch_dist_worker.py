@@ -120,7 +120,7 @@ class ReplayedGraph:
 
     def __init__(self, family, run):
         self.family, self.run = family, run
-        self.launches, self.replays = {}, 0
+        self.launches, self.replays, self.copy_bytes = {}, 0, 0
 
     def replay(self):
         from stochqn_tpu_torch.parallel import comm
@@ -130,7 +130,7 @@ class ReplayedGraph:
         try:
             out, infos = self.run(fam.state_tree(), fam.inputs_tree(),
                                   fam.eta)
-            fam.write_back(out)
+            self.copy_bytes = fam.write_back(out)
         finally:
             comm._capturing = capturing
         comm.log_replay(list(comm.CAPTURED))
