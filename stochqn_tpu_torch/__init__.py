@@ -66,7 +66,8 @@ from stochqn_tpu_torch.fused import (FusedTrainer, batchify,
                                      shuffle_batched)
 from stochqn_tpu_torch.guided import SQN, adaQN, oLBFGS
 from stochqn_tpu_torch.models import losses
-from stochqn_tpu_torch.models.logistic import StochasticLogisticRegression
+from stochqn_tpu_torch.models.logistic import (StochasticLogisticRegression,
+                                              clear_fit_programs)
 from stochqn_tpu_torch.optim_adapter import OLBFGS, PytreeTrainer, olbfgs
 from stochqn_tpu_torch.ops.kernels.two_loop_kernel import (
     direction, direction_ref, direction_streamed, direction_streamed_ref,
@@ -87,6 +88,7 @@ __all__ = [
     "AdvanceResult", "oLBFGS_free", "SQN_free", "adaQN_free",
     "FusedTrainer", "batchify", "shuffle_batched",
     "oLBFGS", "SQN", "adaQN", "StochasticLogisticRegression",
+    "clear_fit_programs",
     "minimize", "MinimizeResult", "OLBFGS", "olbfgs", "PytreeTrainer",
     "save_state", "load_state", "save_sharded", "load_sharded",
     "losses",

@@ -27,6 +27,8 @@ package's ``jax.random`` stream cannot be reproduced in torch).
 """
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
@@ -42,8 +44,21 @@ from stochqn_tpu_torch.parallel.mesh import (MeshComm, gather_state,
                                              mesh_shape, shard_batches)
 from stochqn_tpu_torch.models import losses
 from stochqn_tpu_torch.models import sparse as sparse_losses
-from stochqn_tpu_torch.utils.metrics import LossHistory, span
+from stochqn_tpu_torch.utils.metrics import LossHistory, count, span
 from stochqn_tpu_torch.utils.schedules import step_size_const, step_size_sqrt
+
+# The fused fits' trainers off a mesh, each with its CUDA graphs and the
+# 0-d tensor its functions read the penalty from, by what the functions and
+# graphs depend on (StochasticLogisticRegression._fused_trainer), the least
+# recently used first.  A key names the data's shapes and the device's
+# index, so each trainer holds one family of graphs and buffers.
+_PROGRAMS: "OrderedDict[tuple, tuple]" = OrderedDict()
+_PROGRAMS_KEPT = 4
+_PROGRAMS_LOCK = threading.Lock()
+# The dtypes whose operations take a Python scalar at their own precision,
+# so that a penalty held in a 0-d tensor of the dtype gives the scalar's
+# bits (bfloat16 computes with the scalar in float32).
+_TENSOR_PENALTY_DTYPES = (torch.float32, torch.float64)
 
 
 def _densify(X):
@@ -87,6 +102,50 @@ def _padded(X, dtype: torch.dtype, max_nnz=None, device=None):
     return out
 
 
+def clear_fit_programs() -> None:
+    """Drop the captured programs that fused
+    :class:`StochasticLogisticRegression` fits keep between fits: each
+    one's device buffers and graph pool are freed with the last estimator
+    that holds a state of it (``torch.cuda.empty_cache()`` then returns
+    the memory to the card)."""
+    with _PROGRAMS_LOCK:
+        _PROGRAMS.clear()
+
+
+def _keep(key, entry) -> None:
+    """Give a fit's trainer back to :data:`_PROGRAMS`, as the most
+    recently used, dropping the least recently used beyond
+    ``_PROGRAMS_KEPT``."""
+    with _PROGRAMS_LOCK:
+        _PROGRAMS[key] = entry
+        if len(_PROGRAMS) > _PROGRAMS_KEPT:
+            _PROGRAMS.popitem(last=False)
+
+
+def _functions(cores, reg) -> dict:
+    """A fused trainer's ``grad_fn``, ``obj_fn`` and ``hess_vec_fn`` over a
+    batch ``(*features, y, w)`` from ``cores`` (``(loss, grad, hessvec)``
+    of :meth:`StochasticLogisticRegression._cores`), with the penalty
+    ``reg``: a float, or a 0-d tensor that each fit fills."""
+    loss_core, grad_core, hess_core = cores
+
+    def grad_fn(x, batch):
+        *fb, Yb, wb = batch
+        return grad_core(x, *fb, Yb, wb, reg)
+
+    def obj_fn(x, batch):
+        *fb, Yb, wb = batch
+        return loss_core(x, *fb, Yb, wb, reg)
+
+    def hess_vec_fn(x, v, batch):
+        # Closed-form Hessian-vector product: the same function the
+        # protocol engine gets via _build_funs (and the reference via
+        # its hess_vec_fun callback, src/stochqn.c:1105).
+        *fb, Yb, wb = batch
+        return hess_core(x, v, *fb, Yb, wb, reg)
+    return dict(grad_fn=grad_fn, obj_fn=obj_fn, hess_vec_fn=hess_vec_fn)
+
+
 class StochasticLogisticRegression:
     """Logistic regression (binary or multinomial) trained with oLBFGS, SQN,
     or adaQN.
@@ -108,6 +167,10 @@ class StochasticLogisticRegression:
     functions carry ``reg_param / n_data`` of the penalty, so that it
     counts once.  ``coef_``, prediction and the fitted state are the
     gathered whole.
+
+    Fused fits off a mesh of one shape and optimizer config, in float32 or
+    float64, share a captured program, which keeps its buffers on the
+    device between fits.
     """
 
     def __init__(self, reg_param=1e-3, fit_intercept=True, random_state=1,
@@ -206,35 +269,27 @@ class StochasticLogisticRegression:
             return _padded(X, self.dtype, max_nnz, self.device)
         return (self._tensor(_densify(X)),)
 
+    def _core_fns(self, sparse: bool) -> tuple:
+        """The loss, gradient and Hessian-vector functions of
+        :mod:`~stochqn_tpu_torch.models.losses` (dense) or
+        :mod:`~stochqn_tpu_torch.models.sparse`, binary or multinomial, as
+        the modules hold them now."""
+        module, pre = (sparse_losses, "sparse_") if sparse else (losses, "")
+        kind = "multinomial" if self._is_mult else "binary"
+        return tuple(getattr(module, f"{pre}{kind}_logistic_{op}")
+                     for op in ("loss", "grad", "hessvec"))
+
     def _cores(self, sparse: bool, n_features: int):
         """``(loss, grad, hessvec)`` over ``(x, *features, y, w, reg)``
         (``hessvec`` takes ``v`` after ``x``), dense or sparse, binary or
         multinomial."""
-        if self._is_mult:
-            if sparse:
-                sl = sparse_losses
-                return (
-                    lambda x, i, v, Y, w, r: sl.sparse_multinomial_logistic_loss(
-                        x, i, v, Y, n_features, w, r),
-                    lambda x, i, v, Y, w, r: sl.sparse_multinomial_logistic_grad(
-                        x, i, v, Y, n_features, w, r),
-                    lambda x, hv, i, v, Y, w, r:
-                        sl.sparse_multinomial_logistic_hessvec(
-                            x, hv, i, v, Y, n_features, w, r))
-            return (losses.multinomial_logistic_loss,
-                    losses.multinomial_logistic_grad,
-                    losses.multinomial_logistic_hessvec)
-        if sparse:
-            sl = sparse_losses
-            return (
-                lambda x, i, v, y, w, r: sl.sparse_binary_logistic_loss(
-                    x, i, v, y, n_features, w, r),
-                lambda x, i, v, y, w, r: sl.sparse_binary_logistic_grad(
-                    x, i, v, y, n_features, w, r),
-                lambda x, hv, i, v, y, w, r: sl.sparse_binary_logistic_hessvec(
-                    x, hv, i, v, y, n_features, w, r))
-        return (losses.binary_logistic_loss, losses.binary_logistic_grad,
-                losses.binary_logistic_hessvec)
+        loss, grad, hv = self._core_fns(sparse)
+        if not sparse:
+            return loss, grad, hv
+        return (lambda x, i, v, y, w, r: loss(x, i, v, y, n_features, w, r),
+                lambda x, i, v, y, w, r: grad(x, i, v, y, n_features, w, r),
+                lambda x, u, i, v, y, w, r: hv(x, u, i, v, y, n_features, w,
+                                               r))
 
     def _build_funs(self):
         """Loss/grad/hessvec closures for the protocol engine: numpy in,
@@ -374,8 +429,7 @@ class StochasticLogisticRegression:
             # features become (indices, values) leaves and no dense
             # [n, n_features] matrix ever exists on the device.
             feats = self._features(X)
-            loss_core, grad_core, hess_core = self._cores(issparse(X),
-                                                          X.shape[1])
+            loss_core = self._cores(issparse(X), X.shape[1])[0]
             if self._is_mult:
                 Yd = self._tensor(y)
             else:
@@ -403,31 +457,15 @@ class StochasticLogisticRegression:
                 feats = tuple(rows(f, tr_idx) for f in feats)
                 Yd, Wd = rows(Yd, tr_idx), rows(Wd, tr_idx)
 
-            def grad_fn(x, batch):
-                *fb, Yb, wb = batch
-                return grad_core(x, *fb, Yb, wb, reg_rank)
-
-            def obj_fn(x, batch):
-                *fb, Yb, wb = batch
-                return loss_core(x, *fb, Yb, wb, reg_rank)
-
-            def hess_vec_fn(x, v, batch):
-                # Closed-form Hessian-vector product: the same function the
-                # protocol engine gets via _build_funs (and the reference via
-                # its hess_vec_fun callback, src/stochqn.c:1105).
-                *fb, Yb, wb = batch
-                return hess_core(x, v, *fb, Yb, wb, reg_rank)
-
-            cfg_cls = {"oLBFGS": OLBFGSConfig, "SQN": SQNConfig,
-                       "adaQN": AdaQNConfig}[self.optimizer_name]
-            trainer = FusedTrainer(self.optimizer_name, cfg_cls.create(**kw),
-                                   grad_fn, obj_fn=obj_fn,
-                                   hess_vec_fn=hess_vec_fn, mesh=self.mesh)
-            state = trainer.init(torch.as_tensor(w0, dtype=dtype,
-                                                 device=device))
-
             batch_size = max(1, Yd.shape[0] // int(batches_per_epoch))
             data = batchify((*feats, Yd, Wd), batch_size)
+            x0 = torch.as_tensor(w0, dtype=dtype, device=device)
+            cfg_cls = {"oLBFGS": OLBFGSConfig, "SQN": SQNConfig,
+                       "adaQN": AdaQNConfig}[self.optimizer_name]
+            trainer, kept = self._fused_trainer(
+                cfg_cls.create(**kw), issparse(X), X.shape[1], reg_rank,
+                (x0, *data))
+            state = trainer.init(x0)
             upd_freq = getattr(trainer.cfg, "upd_freq", 1)
             history = LossHistory(tol)
             gen = torch.Generator(device=device)
@@ -458,9 +496,56 @@ class StochasticLogisticRegression:
             if self.mesh is not None:
                 state = gather_state(state, self.mesh)
             self._x_fused = _numpy(state.x).astype(np.float64)
+        if kept is not None:
+            _keep(*kept)
         self._fused_state = state
         self.is_fitted = True
         return self
+
+    def _fused_trainer(self, cfg, sparse: bool, n_features: int,
+                       reg: float, tensors: tuple):
+        """The fused fit's trainer on :meth:`_cores`, its functions'
+        penalty ``reg``, and what :func:`_keep` takes back after the fit
+        (None: a trainer of the fit's own).  ``tensors`` are the fit's
+        initial weights and batched data, on the fit's device.
+
+        On a mesh, and in bfloat16, a trainer of the fit's own whose
+        functions hold ``reg`` as a float.  Otherwise the trainer
+        :data:`_PROGRAMS` keeps for the optimizer, its config, the functions
+        the cores call (:meth:`_core_fns`: the model's kind and the
+        features' layout), the features' count, the shapes and dtypes of
+        ``tensors`` and their device (with its index), with the one family
+        of graphs it captured, else a new one.  Its functions read the
+        penalty from a 0-d tensor on that device, which ``reg`` fills here
+        on the device's current stream, before the fit's first epoch: the
+        fits of a grid over ``reg_param`` and ``random_state`` replay the
+        graphs the first fit captured.  The fit takes the trainer out of
+        :data:`_PROGRAMS` (a fit of the same key in another thread builds
+        its own), and a fit that ends gives it back; ``donate=False``: a
+        fit's state is a copy, which no later fit overwrites."""
+        name = self.optimizer_name
+        cores = self._cores(sparse, n_features)
+        if self.mesh is not None:
+            return FusedTrainer(name, cfg, **_functions(cores, reg),
+                                mesh=self.mesh), None
+        dtype, device = self.dtype, tensors[0].device
+        if dtype not in _TENSOR_PENALTY_DTYPES:
+            count("fit_programs_built")
+            return FusedTrainer(name, cfg, **_functions(cores, reg)), None
+        key = (name, cfg, self._core_fns(sparse), n_features,
+               tuple((tuple(t.shape), t.dtype) for t in tensors), device)
+        with _PROGRAMS_LOCK:
+            entry = _PROGRAMS.pop(key, None)
+        if entry is None:
+            penalty = torch.zeros((), dtype=dtype, device=device)
+            entry = (FusedTrainer(name, cfg, **_functions(cores, penalty)),
+                     penalty)
+            count("fit_programs_built")
+        else:
+            count("fit_programs_reused")
+        trainer, penalty = entry
+        penalty.fill_(reg)
+        return trainer, (key, entry)
 
     def partial_fit(self, X, y, sample_weight=None, classes=None,
                     decr_step_size=False):

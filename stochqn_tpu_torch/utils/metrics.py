@@ -24,7 +24,10 @@ always on, at a call's granularity, never an iteration's:
   device's values on the host that decides the program's control flow
   (:func:`host_read`: a call's ``niter``, free mode's request codes);
   ``copy_in_bytes`` the bytes a graph's buffers take in before a replay;
-  ``copy_back_bytes`` the bytes a replay copies back into them.
+  ``copy_back_bytes`` the bytes a replay copies back into them;
+  ``fit_programs_reused`` and ``fit_programs_built`` the fused
+  ``StochasticLogisticRegression`` fits off a mesh that took a cached
+  trainer and its captured graphs, and those that built one.
 * :func:`label` ``(name)``: names the CUDA-graph nodes its body records
   while the port captures an epoch (:func:`capturing`); anywhere else it
   does nothing.  Each captured graph's map, ``(node_count, [(label, first,
@@ -63,7 +66,8 @@ from stochqn_tpu_torch.core.enums import INFO_NAMES, Info
 SPANS: Dict[str, list] = {}
 # name -> count since reset()
 COUNTERS: Dict[str, int] = {}
-_NAMES = ("host_reads", "copy_in_bytes", "copy_back_bytes")
+_NAMES = ("host_reads", "copy_in_bytes", "copy_back_bytes",
+          "fit_programs_reused", "fit_programs_built")
 _lock = threading.Lock()
 _calls = itertools.count(1)         # the calls' sequence numbers
 

@@ -11,8 +11,10 @@ loop's every bit and info code, and launch each kernel as often: SQN on
 ``project_adaqn`` and on the matvec route, oLBFGS in block and interleaved
 (shift) layout.  Then: a second call with another step on the cached
 graph follows the step, the generic layout meets one graph per start
-phase, the warm-up leaves the caller's state as it was, and a host read
-in the user's gradient raises at capture, naming the function.
+phase, the warm-up leaves the caller's state as it was, a host read in
+the user's gradient raises at capture, naming the function, and a second
+fused ``StochasticLogisticRegression`` fit of one shape replays the
+first's graph with its own penalty.
 
 This file imports no JAX: run it on the machine with the card,
 ``python -m pytest --noconftest -m cuda tests/test_torch_graphs_cuda.py``.
@@ -210,3 +212,110 @@ def test_host_read_raises_at_capture(dev):
     state, _ = ok.jit_epochs()(ok.init(x0), data, ETA, 1)
     torch.cuda.synchronize()
     assert int(state.niter) == 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("valset_frac", [None, 0.25])
+def test_fused_fit_of_one_shape_replays_the_first_capture(dev, valset_frac):
+    """A second fused fit of one shape, with another ``reg_param`` and
+    ``random_state``, warms up and captures nothing, and gives the bits of
+    the same fit from an empty cache.  With ``valset_frac`` the split's
+    rows make a shape of their own, whose trainer the first fit of that
+    shape captures."""
+    from stochqn_tpu_torch import StochasticLogisticRegression
+    from stochqn_tpu_torch.models import logistic
+    rng = np.random.default_rng(2)
+    X = rng.standard_normal((160, F))
+    Y = np.eye(C)[rng.integers(0, C, 160)]
+
+    def fit(reg, rs, valset_frac):
+        return StochasticLogisticRegression(
+            reg_param=reg, random_state=rs, optimizer="SQN", engine="fused",
+            step_size=0.05, valset_frac=valset_frac, nepochs=3,
+            batches_per_epoch=8, mem_size=M, bfgs_upd_freq=L,
+            device=dev).fit(X, Y)
+
+    logistic.clear_fit_programs()
+    fit(0.1, 1, None)
+    if valset_frac is not None:
+        graphs.reset_stats()
+        fit(0.1, 1, valset_frac)
+        assert graphs.STATS["captures"] > 0
+    graphs.reset_stats()
+    second = fit(1e-2, 2, valset_frac)
+    torch.cuda.synchronize()
+    assert graphs.STATS["captures"] == 0 and graphs.STATS["warm_s"] == 0.0
+    assert graphs.STATS["replays"] > 0
+    assert len(logistic._PROGRAMS) == (1 if valset_frac is None else 2)
+    logistic.clear_fit_programs()
+    again = fit(1e-2, 2, valset_frac)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(second.coef_, again.coef_)
+    logistic.clear_fit_programs()
+
+
+def _fit_logistic(dev, **kw):
+    from stochqn_tpu_torch import StochasticLogisticRegression
+    rng = np.random.default_rng(3)
+    X = rng.standard_normal((160, F))
+    Y = np.eye(C)[rng.integers(0, C, 160)]
+    return StochasticLogisticRegression(
+        **dict(dict(optimizer="SQN", engine="fused", step_size=0.05,
+                    valset_frac=None, nepochs=2, batches_per_epoch=8,
+                    mem_size=M, bfgs_upd_freq=L, device=dev), **kw)).fit(X, Y)
+
+
+@pytest.mark.cuda
+def test_fused_fit_programs_hold_one_family_each(dev):
+    """Fused fits over five ``batches_per_epoch``: the cache keeps the
+    four shapes used last, each trainer with the one family of graphs and
+    buffers its shape captured."""
+    from stochqn_tpu_torch.models import logistic
+    logistic.clear_fit_programs()
+    for batches in (2, 4, 5, 8, 10):
+        _fit_logistic(dev, batches_per_epoch=batches)
+    torch.cuda.synchronize()
+    kept = list(logistic._PROGRAMS.values())
+    assert len(kept) == 4
+    assert [len(trainer._programs.families) for trainer, _ in kept] == [1] * 4
+    logistic.clear_fit_programs()
+
+
+@pytest.mark.cuda
+def test_fused_fits_on_two_cards_keep_a_program_each(dev):
+    """Fits with the default device under ``torch.cuda.device(0)`` and
+    then ``(1)``: each card builds its own program, whose penalty lies on
+    it, and gives the bits of the same fit from an empty cache; a second
+    fit on card 0 reuses card 0's program."""
+    from stochqn_tpu_torch.models import logistic
+    from stochqn_tpu_torch.utils import metrics
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs (one program a card)")
+    logistic.clear_fit_programs()
+    metrics.reset()
+    with torch.cuda.device(0):
+        _fit_logistic(dev, reg_param=0.1, random_state=1)
+    with torch.cuda.device(1):
+        on_1 = _fit_logistic(dev, reg_param=1e-2, random_state=2)
+        assert on_1._fused_state.x.device == torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        on_0 = _fit_logistic(dev, reg_param=1e-2, random_state=2)
+    torch.cuda.synchronize(0)
+    torch.cuda.synchronize(1)
+    counters = metrics.snapshot()["counters"]
+    assert (counters["fit_programs_built"],
+            counters["fit_programs_reused"]) == (2, 1)
+    assert sorted(p.device.index for _, p in logistic._PROGRAMS.values()) \
+        == [0, 1]
+    logistic.clear_fit_programs()
+    with torch.cuda.device(1):
+        again = _fit_logistic(dev, reg_param=1e-2, random_state=2)
+        torch.cuda.synchronize()
+    np.testing.assert_array_equal(on_1.coef_, again.coef_)
+    with torch.cuda.device(0):
+        logistic.clear_fit_programs()
+        again = _fit_logistic(dev, reg_param=1e-2, random_state=2)
+        torch.cuda.synchronize()
+    np.testing.assert_array_equal(on_0.coef_, again.coef_)
+    logistic.clear_fit_programs()
+    metrics.reset()

@@ -11,6 +11,8 @@ stream has no torch twin), so it is held against the port's own
 ``FusedTrainer.epochs_scheduled`` on the permutations that generator
 draws.  The digits>=5 split reaches only 90.7% train accuracy at the
 optimum (``test_logistic.py``), so convergence is checked as approach.
+Fused fits of one shape share a trainer across fits; each is held bit for
+bit to the same fit from an empty cache.
 
 Tolerances: float64 on both sides, rtol 1e-9 and atol 1e-12 (oLBFGS,
 whose pairs amplify roundings, rtol 1e-7); the prediction functions
@@ -26,11 +28,16 @@ import torch  # noqa: E402
 from stochqn_tpu.models import losses as jl  # noqa: E402
 from stochqn_tpu.models.logistic import (  # noqa: E402
     StochasticLogisticRegression as JaxLR)
+from scipy.sparse import csr_matrix  # noqa: E402
+
+from stochqn_tpu_torch import graphs  # noqa: E402
 from stochqn_tpu_torch.core.config import SQNConfig  # noqa: E402
 from stochqn_tpu_torch.fused import FusedTrainer, batchify  # noqa: E402
+from stochqn_tpu_torch.models import logistic  # noqa: E402
 from stochqn_tpu_torch.models import losses as tl  # noqa: E402
 from stochqn_tpu_torch.models.logistic import (  # noqa: E402
     StochasticLogisticRegression)
+from stochqn_tpu_torch.utils import metrics  # noqa: E402
 
 RTOL, ATOL = 1e-9, 1e-12
 RTOL_OLBFGS = 1e-7
@@ -308,3 +315,149 @@ def test_fused_model_adds_no_per_step_work():
         FusedTrainer._epoch_at = orig
     assert len(model) == len(counts) == 2
     assert [m - b for m, b in zip(model, counts)] == [0] * 2
+
+
+def _same_state(a, b):
+    return all(torch.equal(u, v) for u, v in
+               zip(graphs.flatten(a)[0], graphs.flatten(b)[0]))
+
+
+@pytest.mark.parametrize("optimizer", ["SQN", "oLBFGS"])
+@pytest.mark.parametrize("multi", [False, True], ids=["binary", "multi"])
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "csr"])
+def test_fused_fits_of_one_shape_share_a_trainer(monkeypatch, sparse, multi,
+                                                 optimizer):
+    """Fused fits over ``reg_param`` a, b, a with a new ``random_state``
+    each: the first builds the trainer, the other two reuse it, and each
+    gives the bits of the same fit from an empty cache and of the fit
+    whose functions hold the penalty as a float; the first estimator's
+    results stay as they were.  Another ``mem_size`` or ``n_features``
+    builds a trainer of its own."""
+    rng = np.random.default_rng(5)
+    X = rng.standard_normal((96, 6))
+    if sparse:
+        X[rng.random(X.shape) < 0.5] = 0.0
+        X = csr_matrix(X)
+    labels = rng.integers(0, 3, 96)
+    y = np.eye(3)[labels] if multi else (labels > 0).astype(np.float64)
+    kw = dict(optimizer=optimizer, engine="fused", step_size=0.1,
+              valset_frac=None, nepochs=3, batches_per_epoch=4, mem_size=3,
+              dtype=torch.float32, device="cpu",
+              **({"bfgs_upd_freq": 2} if optimizer == "SQN" else {}))
+    grid = [(1e-3, 3), (0.5, 4), (1e-3, 5)]
+
+    def fit(reg, rs, X=X, **more):
+        return StochasticLogisticRegression(
+            reg_param=reg, random_state=rs, **dict(kw, **more)).fit(X, y)
+
+    logistic.clear_fit_programs()
+    metrics.reset()
+    first = fit(*grid[0])
+    coef, state = first.coef_.copy(), graphs.copy_tree(first._fused_state)
+    fits = [first] + [fit(*g) for g in grid[1:]]
+    counters = metrics.snapshot()["counters"]
+    assert (counters["fit_programs_built"],
+            counters["fit_programs_reused"]) == (1, 2)
+    np.testing.assert_array_equal(first.coef_, coef)
+    assert _same_state(first._fused_state, state)
+    assert not np.array_equal(fits[0].coef_, fits[1].coef_)
+    for model, g in zip(fits, grid):
+        logistic.clear_fit_programs()
+        np.testing.assert_array_equal(model.coef_, fit(*g).coef_)
+    with monkeypatch.context() as m:    # each fit's own trainer, a float
+        m.setattr(logistic, "_TENSOR_PENALTY_DTYPES", ())
+        for model, g in zip(fits, grid):
+            np.testing.assert_array_equal(model.coef_, fit(*g).coef_)
+    metrics.reset()
+    fit(*grid[1])
+    fit(*grid[1], mem_size=4)
+    fit(*grid[1], X=X[:, :-1])
+    counters = metrics.snapshot()["counters"]
+    assert (counters["fit_programs_built"],
+            counters["fit_programs_reused"]) == (2, 1)
+    logistic.clear_fit_programs()
+    metrics.reset()
+
+
+def test_fused_fit_programs_keep_one_shape_each():
+    """Fits over five ``batches_per_epoch``: each batch shape builds a
+    trainer of its own, the cache keeps the four used last (the first
+    shape is built again, the last reused), and ``clear_fit_programs``
+    empties it."""
+    rng = np.random.default_rng(7)
+    X = rng.standard_normal((96, 5))
+    y = (rng.random(96) > 0.5).astype(np.float64)
+
+    def fit(batches):
+        StochasticLogisticRegression(
+            optimizer="SQN", engine="fused", step_size=0.1, valset_frac=None,
+            nepochs=2, batches_per_epoch=batches, mem_size=3, bfgs_upd_freq=2,
+            dtype=torch.float32, device="cpu").fit(X, y)
+
+    logistic.clear_fit_programs()
+    metrics.reset()
+    for batches in (2, 3, 4, 6, 8):
+        fit(batches)
+    assert metrics.snapshot()["counters"]["fit_programs_built"] == 5
+    assert len(logistic._PROGRAMS) == logistic._PROGRAMS_KEPT == 4
+    assert len({key[-2] for key in logistic._PROGRAMS}) == 4
+    metrics.reset()
+    fit(8)
+    fit(2)
+    counters = metrics.snapshot()["counters"]
+    assert (counters["fit_programs_built"],
+            counters["fit_programs_reused"]) == (1, 1)
+    assert len(logistic._PROGRAMS) == 4
+    logistic.clear_fit_programs()
+    assert not logistic._PROGRAMS
+    metrics.reset()
+
+
+def test_fused_fits_in_threads_take_the_trainer_in_turn():
+    """Fits of one shape in twelve threads at once, each model with its
+    own penalty: a fit takes the kept trainer out while it runs, so each
+    model ends with the bits of the same fits made alone.  The first fit
+    of each model, which seeds numpy's global generator, is made before
+    the threads start; the later ones start from the model's weights."""
+    import sys
+    import threading
+    rng = np.random.default_rng(6)
+    X = rng.standard_normal((64, 5))
+    y = np.eye(3)[rng.integers(0, 3, 64)]
+    regs = [10.0 ** -k for k in range(12)]
+
+    def model(reg):
+        return StochasticLogisticRegression(
+            reg_param=reg, optimizer="SQN", engine="fused", step_size=0.1,
+            valset_frac=None, nepochs=2, batches_per_epoch=4, mem_size=3,
+            bfgs_upd_freq=2, dtype=torch.float32, device="cpu").fit(X, y)
+    alone = []
+    for reg in regs:
+        m = model(reg)
+        for _ in range(3):
+            m.fit(X, y)
+        alone.append(m.x_)
+    models = [model(reg) for reg in regs]
+    errors = []
+
+    def run(m):
+        try:
+            for _ in range(3):
+                m.fit(X, y)
+        except Exception as err:  # noqa: BLE001 - reported below
+            errors.append(err)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run, args=(m,)) for m in models]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors[0]
+    for m, want in zip(models, alone):
+        np.testing.assert_array_equal(m.x_, want)
+    logistic.clear_fit_programs()

@@ -345,6 +345,14 @@ def test_logistic_sharded_fit_counts_the_penalty_once(suite):
                                   ref.predict(X))
 
 
+def test_logistic_mesh_fit_takes_no_shared_program(suite):
+    """A fit on a mesh builds a trainer of its own, outside the fused fits'
+    shared programs: it counts as neither built nor reused."""
+    for r in _case(suite, "logistic"):
+        for key in ("fixed", "shuffled"):
+            np.testing.assert_array_equal(r[key + "_programs"], [0, 0])
+
+
 def test_logistic_non_dividing_data_axis_raises(suite):
     """Batches of 6 rows on 4 data ranks: the port raises (the JAX package
     replicates such a batch, which a sum over the data axis would count

@@ -302,6 +302,21 @@ def test_span_and_counter_readers(monkeypatch):
     metrics.reset()
 
 
+def test_fit_program_hit_reader(monkeypatch):
+    """``fit_program_hit_pct``: the fits that reused a trainer over every
+    fused fit; nothing before a fit, or where the program keeps no such
+    counters (a program without them, as before they were added)."""
+    run = types.SimpleNamespace()
+    metrics.reset()
+    assert _read("fit_program_hit_pct", run) is None
+    metrics.COUNTERS.update(fit_programs_built=1, fit_programs_reused=199)
+    assert _read("fit_program_hit_pct", run) == 99.5
+    monkeypatch.setattr(metrics, "COUNTERS", {"host_reads": 3})
+    assert _read("fit_program_hit_pct", run) is None
+    monkeypatch.undo()
+    metrics.reset()
+
+
 # -- on the card ------------------------------------------------------------- #
 @pytest.fixture
 def dev():

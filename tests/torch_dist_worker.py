@@ -282,7 +282,7 @@ def _torch_cases():
                                             shard_batches, shard_state)
     from stochqn_tpu_torch.parallel import comm as comm_mod
     from stochqn_tpu_torch.parallel import distributed
-    from stochqn_tpu_torch.utils import checkpoint
+    from stochqn_tpu_torch.utils import checkpoint, metrics
 
     T = torch.as_tensor
     meshes = {}
@@ -515,10 +515,15 @@ def _torch_cases():
         m = mesh((2, 2))
         kw = dict(LOGISTIC_KW, dtype=torch.float64, device="cpu")
         out = {}
+        programs = ("fit_programs_built", "fit_programs_reused")
         for shuffle in (False, True):
             key = "shuffled" if shuffle else "fixed"
+            before = metrics.snapshot()["counters"]
             sharded = StochasticLogisticRegression(
                 mesh=m, shuffle_data=shuffle, **kw).fit(X, Y)
+            after = metrics.snapshot()["counters"]
+            out[key + "_programs"] = np.array(
+                [after[k] - before[k] for k in programs])
             plain = StochasticLogisticRegression(
                 shuffle_data=shuffle, **kw).fit(X, Y)
             out[key] = sharded.x_
