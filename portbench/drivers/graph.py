@@ -14,6 +14,13 @@ host's wait for the last call.  ``iters_per_s``: the iterations the
 program counted in its state (``niter``) over the window, over its
 seconds.  The profiled slice is ``trace_calls`` more calls after the
 window.
+
+Where the traffic names a ``mesh`` ``[n_data, n_param]``, the cell runs
+as that many ranks (``portbench/ranks.py``): each draws the same data
+from the seed on its own card, the trainer runs on the port's mesh
+(``FusedTrainer(..., mesh=...)``, ``init`` shards ``x0``), the checked
+iterates and pairs are gathered from every rank's part
+(``parallel.mesh.gather_state``), and rank 0's clock ends the window.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ class Run(driving.Base):
 
     def setup(self) -> None:
         from stochqn_tpu_torch import FusedTrainer, SQNConfig, graphs
+        from stochqn_tpu_torch.parallel.mesh import gather_state
         from stochqn_tpu_torch.ops.kernels import two_loop_kernel as tlk
         cfg, tr = self.cfg, self.traffic
         self.data = self.ctx.draw()
@@ -39,8 +47,10 @@ class Run(driving.Base):
             mem_size=cfg["mem_size"], bfgs_upd_freq=cfg["bfgs_upd_freq"],
             min_curvature=cfg["min_curvature"],
             pairs_bf16=cfg.get("pairs_bf16", False))
+        mesh = self.ctx.mesh(tr["mesh"]) if "mesh" in tr else None
         self.trainer = FusedTrainer("SQN", sqn_cfg, grad_fn,
-                                    hess_vec_fn=hess_vec_fn, donate=True)
+                                    hess_vec_fn=hess_vec_fn, mesh=mesh,
+                                    donate=True)
         self.program = self.trainer.jit_epochs()
         self.eta = cfg["step_size"]
         E = tr["epochs_per_call"]
@@ -49,11 +59,12 @@ class Run(driving.Base):
         for _ in range(tr["check_calls"]):
             before = tlk.read_launches()
             state, infos = self.program(state, self.batches, self.eta, E)
-            xs.append(state.x.detach().float().cpu())
+            full = state if mesh is None else gather_state(state, mesh)
+            xs.append(full.x.detach().float().cpu())
             codes += infos.reshape(-1).tolist()
         self.state = state
         self.record = dict(xs=xs, codes=codes,
-                           pairs=driving.live_pairs(state.mem))
+                           pairs=driving.live_pairs(full.mem))
         per_replay = {k: (v - before[k]) / E
                       for k, v in tlk.read_launches().items()
                       if v != before[k]}
@@ -79,7 +90,7 @@ class Run(driving.Base):
             if prev is not None:
                 prev.synchronize()
             prev = ev
-            if self.clock() - t0 >= seconds:
+            if self.stop(self.clock() - t0 >= seconds):
                 break
         self.sync()
         self.window_s = self.clock() - t0

@@ -1,6 +1,8 @@
 """What the drivers share: the device's clock and sync, a run's record,
 the precision a reference runs in, the card's name, power limit, clocks
-and temperature, and the program's pair memory read back oldest first."""
+and temperature, and the program's pair memory read back oldest first;
+on several ranks, rank 0's part (the end of the window, the profiler,
+the check)."""
 from __future__ import annotations
 
 import contextlib
@@ -93,6 +95,26 @@ class Base:
         self.lines: List[str] = []      # printed before the result
         self.record: dict = {}          # the program's checked steps
 
+    @property
+    def leader(self) -> bool:
+        """Whether this process reports the run: the only one, or rank 0."""
+        return self.ctx.ranks is None or self.ctx.ranks.rank == 0
+
+    def stop(self, done: bool) -> bool:
+        """Whether the window ends: ``done``, by rank 0's clock on every
+        rank where there are several, so that all make the same calls."""
+        return done if self.ctx.ranks is None else self.ctx.ranks.decide(done)
+
+    def held(self) -> set:
+        """The devices that hold the run's data and the program's
+        iterate (``state.x``, where the driver keeps a state)."""
+        tensors = [t for t in getattr(self, "data", {}).values()
+                   if isinstance(t, torch.Tensor)]
+        state = getattr(self, "state", None)
+        if state is not None:
+            tensors.append(state.x)
+        return {t.device for t in tensors}
+
     def sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -111,7 +133,18 @@ class Base:
         return ev
 
     def profile(self, call) -> None:
-        self.traced = trace.profile_slice(call, self.sync)
+        """``call()`` profiled (:func:`portbench.trace.profile_slice`), the
+        payload of the collectives it ran counted in ``collective_bytes``;
+        on a rank other than 0 it only runs."""
+        from stochqn_tpu_torch.parallel import comm
+        if not self.leader:
+            self.sync()
+            call()
+            self.sync()
+            return
+        with comm.record_collectives() as log:
+            self.traced = trace.profile_slice(call, self.sync)
+        self.traced["collective_bytes"] = comm.collective_bytes(log)
 
     def notes(self) -> List[str]:
         return list(self.lines)
@@ -130,7 +163,10 @@ class Base:
 
     def check(self) -> dict:
         """The program's record against the plain reference's, in the
-        precision the configuration states."""
+        precision the configuration states; rank 0's alone (the others
+        give nothing)."""
+        if not self.leader:
+            return {}
         return self.compare(self.record, self.reference("float32"))
 
     def compare(self, prog: dict, ref: dict) -> dict:
@@ -138,5 +174,7 @@ class Base:
 
     def control(self, mode: str) -> dict:
         """The check's numbers with the plain reference in ``mode`` put in
-        the program's place."""
+        the program's place; rank 0's alone."""
+        if not self.leader:
+            return {}
         return self.compare(self.reference(mode), self.reference("float32"))

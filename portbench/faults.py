@@ -4,10 +4,17 @@ the check has to read each as not correct.
 * ``unchanged``: SQN's step returns its state unchanged;
 * ``half_batch``: the program's gradient leaves half of the batch out and
   takes the mean over the rest (the model's ``half_batch``);
-* ``altered``: the direction kernel's answer altered where it is made,
-  one entry moved by 1.
+* ``altered``: the direction's answer altered where it is made, one
+  entry moved by 1: the direction kernel's on one card, on a mesh's
+  split route each rank's part of it (``ops.two_loop._collapsed``);
+* ``no_param_sum``: the exchange between cards left out:
+  ``MeshComm.sum_param`` returns the rank's own parts unsummed, so the
+  two-loop, the guard and the commit see only this rank's slice of each
+  product over the weights.
 
-A one-chip cell has no exchange between chips to leave out.
+:data:`NAMES` are the faults every cell can have; :data:`ACROSS` those
+only a cell on several cards can have (on one card ``sum_param`` sums
+nothing).
 """
 from __future__ import annotations
 
@@ -15,11 +22,16 @@ import contextlib
 import importlib
 
 NAMES = ("unchanged", "half_batch", "altered")
+ACROSS = ("no_param_sum",)
+ALL = NAMES + ACROSS
 
 
 @contextlib.contextmanager
-def _patched(module: str, name: str, value):
-    mod = importlib.import_module(module)
+def _patched(module, name: str, value):
+    """``module`` (a name, or any object) with ``name`` set to ``value``
+    while the block runs."""
+    mod = importlib.import_module(module) if isinstance(module, str) \
+        else module
     old = getattr(mod, name)
     setattr(mod, name, value)
     try:
@@ -34,6 +46,16 @@ def _altered(fn):
         d[0] += 1.0
         return d
     return direction
+
+
+def _altered_split(fn, sharded):
+    def collapsed(grad, mem, gamma, interleaved, comm=None):
+        d = fn(grad, mem, gamma, interleaved, comm)
+        if sharded(comm):
+            d = d.clone()
+            d[0] += 1.0
+        return d
+    return collapsed
 
 
 @contextlib.contextmanager
@@ -56,7 +78,15 @@ def plant(name: str, model):
         with _patched(two_loop.__name__, "direction",
                       _altered(two_loop.direction)), \
                 _patched(two_loop.__name__, "direction_streamed",
-                         _altered(two_loop.direction_streamed)):
+                         _altered(two_loop.direction_streamed)), \
+                _patched(two_loop.__name__, "_collapsed",
+                         _altered_split(two_loop._collapsed,
+                                        two_loop._sharded)):
+            yield
+    elif name == "no_param_sum":
+        from stochqn_tpu_torch.parallel.mesh import MeshComm
+        with _patched(MeshComm, "sum_param",
+                      lambda self, parts, label: tuple(parts)):
             yield
     else:
-        raise KeyError(f"no fault {name!r}; the faults are {NAMES}")
+        raise KeyError(f"no fault {name!r}; the faults are {ALL}")

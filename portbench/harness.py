@@ -23,11 +23,18 @@ checked steps and the warm-up), the window of ``seconds``, with ``trace``
 a profiled slice after it, the peak memory, the program's state freed,
 then the check against the plain reference.  ``setup_s`` runs from the
 start of the process to the window.
+
+On several ranks (``Context.ranks``, :mod:`portbench.ranks`) every rank
+makes the same run: set-up ends at a barrier, rank 0's clock ends the
+window, rank 0 profiles its slice and runs the check while the others
+wait, every rank runs the readers, and rank 0 reports the cards that
+every rank's data and iterate were on.
 """
 from __future__ import annotations
 
 import importlib.util
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -103,15 +110,18 @@ class Context:
     """What a driver is given: the cell's parts, the seed, the device and
     the tables it reads."""
 
-    def __init__(self, bench: Bench, cell: str, seed: int, device):
+    def __init__(self, bench: Bench, cell: str, seed: int, device,
+                 ranks=None):
         self.bench, self.cell_name, self.seed = bench, cell, int(seed)
         self.device = device
+        self.ranks = ranks          # a portbench.ranks.Group, or None
         self.cell = bench.cell(cell)
         self.cfg = bench.config(self.cell["config"])
         self.traffic = bench.data("traffic", self.cell["traffic"])
         self.limits = bench.data("limits", cell)
         self.peaks = json.loads((HERE / "peaks.json").read_text())
         self.t_start = time.perf_counter()     # the process's, in a run
+        self.marks: Dict[str, float] = {}      # set-up's steps, by the clock
 
     def module(self, kind: str, name: Optional[str] = None):
         return self.bench.module(kind, name or self.cfg["model"])
@@ -123,6 +133,13 @@ class Context:
         """The cell's data from the seed, on the device."""
         return self.bench.module("data", self.cfg["data"]).make(
             self.cfg, self.seed, self.device)
+
+    def mesh(self, shape):
+        """The port's ``(data, param)`` mesh of ``shape`` over the ranks."""
+        if self.ranks is None:
+            raise ValueError(f"{self.cell_name}: a mesh needs a cell of "
+                             f"several chips, run as ranks")
+        return self.ranks.mesh(shape)
 
 
 def judge(numbers: Dict[str, float], limits: Dict[str, float]) -> bool:
@@ -139,17 +156,60 @@ def forbidden_modules() -> List[str]:
     return sorted(k for k in sys.modules if k.split(".")[0] in FORBIDDEN)
 
 
+def card_id(device) -> str:
+    """What tells one device from another: a card's UUID; on the CPU (the
+    tests' ranks) each process counts as a device of its own."""
+    import torch
+    if device.type == "cuda":
+        return str(torch.cuda.get_device_properties(device).uuid)
+    return f"cpu/{os.getpid()}"
+
+
+def devices(ctx: Context, held, peak: int) -> dict:
+    """The result's ``device``: every rank's cards (``held``, the devices
+    its data and iterate were on) gathered, ``count`` the distinct ones,
+    ``kind`` their common name, ``memory_peak_bytes`` the fullest card's
+    peak and, on several ranks, each rank's.  Raises where the count is
+    not the cell's ``chips``: a run has to use the devices it is given."""
+    import torch
+    cuda = ctx.device.type == "cuda"
+    mine = dict(ids=sorted({card_id(d) for d in held}), peak=int(peak),
+                kind=torch.cuda.get_device_name(ctx.device) if cuda
+                else "cpu")
+    every = [mine] if ctx.ranks is None else ctx.ranks.gather(mine)
+    ids = {i for r in every for i in r["ids"]}
+    kinds = {r["kind"] for r in every}
+    if len(kinds) != 1:
+        raise RuntimeError(f"the ranks ran on different devices: {kinds}")
+    if len(ids) != ctx.cell["chips"]:
+        raise RuntimeError(
+            f"{ctx.cell_name} asks for {ctx.cell['chips']} devices, and "
+            f"its data and iterates were on {len(ids)}: {sorted(ids)}")
+    device = dict(platform="gpu" if cuda else "cpu", kind=kinds.pop(),
+                  count=len(ids),
+                  memory_peak_bytes=max(r["peak"] for r in every))
+    if ctx.ranks is not None:
+        device["memory_peak_bytes_per_card"] = [r["peak"] for r in every]
+    return device
+
+
 def run_cell(ctx: Context, seconds: float, trace: bool):
     """One run: the driver's set-up, window, optional profiled slice and
     check.  Returns the result (the ``compared`` numbers last) and the
-    driver's notes; the caller prints them."""
+    driver's notes, which the caller prints; on a rank other than 0, None
+    and the line of its set-up's steps."""
     import torch
     from portbench import driving
 
     cuda = ctx.device.type == "cuda"
+    ranks = ctx.ranks
     run = ctx.driver().Run(ctx)
+    ctx.marks["driver"] = run.clock()
     run.setup()
     run.sync()
+    ctx.marks["ready"] = run.clock()
+    if ranks is not None:
+        ranks.barrier()             # set-up ends once every rank's has
     run.setup_s = run.clock() - ctx.t_start
     before = driving.card_state() if cuda else "no card"
     run.window(seconds)
@@ -157,11 +217,17 @@ def run_cell(ctx: Context, seconds: float, trace: bool):
     if trace:
         run.trace()
     peak = torch.cuda.max_memory_allocated(ctx.device) if cuda else 0
+    held = run.held()
     notes = run.notes() + [
         f"card clocks (SM, memory), power and temperature before the "
-        f"window: {before}; after it: {after}"]
+        f"window: {before}; after it: {after}",
+        "set-up, seconds from the run's start to each step: " + ", ".join(
+            f"{k} {t - ctx.t_start:.3f}" for k, t in ctx.marks.items())
+        + f", window {run.setup_s:.3f}"]
     run.release()
     numbers = run.check()
+    if ranks is not None:
+        ranks.barrier()             # the others wait for rank 0's check
     result = dict(correct=judge(numbers, ctx.limits),
                   attempted=int(run.attempted), failed=int(run.failed))
     if trace:
@@ -179,10 +245,9 @@ def run_cell(ctx: Context, seconds: float, trace: bool):
         metrics = {m["name"]: {"value": values[m["name"]], "unit": m["unit"]}
                    for m in wanted}
     result["metrics"] = metrics
-    device = dict(platform="gpu" if cuda else "cpu",
-                  kind=torch.cuda.get_device_name(ctx.device) if cuda
-                  else "cpu",
-                  count=1, memory_peak_bytes=int(peak))
+    device = devices(ctx, held, peak)
+    if not run.leader:
+        return None, notes[-1:]
     result["device"] = device
     if trace:
         device.update(busy_s=run.traced["busy_s"],

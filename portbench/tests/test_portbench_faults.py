@@ -30,10 +30,26 @@ def test_the_bfloat16_control_is_not_correct(tiny):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cell", [w["name"] for w in harness.Bench()
                                   .spec["workloads"]])
-def test_the_control_at_the_cells_size_is_not_correct(card, cell):
-    # each cell's own control at its own size: seconds on the card
+def test_the_control_at_the_cells_size_is_not_correct(card, cell, tmp_path):
+    # each cell's own control at its own size: seconds on the card; a cell
+    # on several cards through control.py's launcher
+    import json
+    import subprocess
+    import sys
     from portbench.control import reading
     bench = harness.Bench()
     ctx = harness.Context(bench, cell, 1, card)
-    numbers = reading(bench, cell, 2**31 + 31, card, 3.0, "control")
+    if ctx.cell["chips"] == 1:
+        numbers = reading(bench, cell, 2**31 + 31, card, 3.0, "control")
+    else:
+        if torch.cuda.device_count() < ctx.cell["chips"]:
+            pytest.skip(f"needs {ctx.cell['chips']} cards")
+        out = subprocess.run(
+            [sys.executable, "portbench/control.py", "--workload", cell,
+             "--control-seeds", str(2**31 + 31), "--window-seconds", "3",
+             "--out", str(tmp_path / "r.json")], cwd=harness.REPO,
+            capture_output=True, text=True, timeout=900)
+        assert out.returncode == 0, out.stderr[-3000:]
+        (numbers,) = json.loads((tmp_path / "r.json").read_text())[
+            "control"].values()
     assert not harness.judge(numbers, ctx.limits), numbers
