@@ -5,8 +5,8 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-(``python3 chip_smoke.py --kernels`` runs only the kernel phases 3, 6, 9
-and 10, for work on a kernel; it prints no contract line.)
+(``python3 chip_smoke.py --kernels`` runs only the kernel phases 3, 6, 9,
+10 and 23, for work on a kernel; it prints no contract line.)
 
 Phases (each failure raises and exits non-zero; nothing is caught):
 
@@ -229,6 +229,26 @@ Phases (each failure raises and exits non-zero; nothing is caught):
     each graph the device time of NCCL's kernels and of the copies (the
     mesh's ``sum_data`` clones).  It prints a ``graphs:`` line of its
     records.
+
+23. The grouped product of a mixture of experts (``csrc/grouped_mm.cu``)
+    at the shapes ``sqn_dsv2lite.graph`` gives it: 4,096 tokens routed
+    top-6 of 64 by a random router through the model's own ``route`` and
+    ``dispatch`` (a real routing, no dropped token), 8 experts held, the
+    24,576-row buffer; ``W_up`` ``[8, 2,048, 1,408]`` and ``W_down``
+    ``[8, 1,408, 2,048]``.  Forward, backward (``dx`` through the
+    transposed weight, ``dw`` the weight-gradient kernel) and the
+    forward-mode rule, and the jvp of a gradient through both kernels,
+    each against the plain per-group version on the same inputs within
+    ``GMM_RTOL`` of the largest entry (near float32 rounding: TF32 reads
+    ~1e-3); one launch a product.  Both kernels timed beside the plain
+    per-expert ``torch.mm`` loop and the bound.  Then the main path:
+    a small DeepSeek-V2 (the cell's structure at small widths) trained by
+    ``PytreeTrainer("SQN", donate=True, boundary_per_batch=True)
+    .jit_epochs()`` for 2 epochs in one call, every launch count set to 0
+    right before it: the grouped products counted equal
+    ``GMM_PER_STEP`` a step and MoE layer (the gradient's and the jvp's,
+    recomputations included) and the direction kernel one a step.  Also
+    run by ``--kernels``.
 
 The last two lines are the kernels' JSON record and the contract line
 ``{"ok": true, "device": {...}}``; the card's ``nvidia-smi`` line is
@@ -4656,16 +4676,188 @@ def graphs_phase(dev, front):
     return out
 
 
+# The grouped product against its plain per-group version on the same
+# inputs: both sum in float32 in different orders; the largest difference
+# over the largest entry.  TF32 products read ~1e-3.
+GMM_RTOL = 1e-5
+# Grouped-product launches a step and MoE layer on the pytree path with a
+# per-batch boundary (each decoder layer recomputed): the gradient 9 row
+# products and 3 weight gradients; each minibatch's Hessian-vector product
+# at the boundary 30 and 9.
+GMM_PER_STEP = {"gradient": 12, "hvp": 39}
+# sqn_dsv2lite.graph's tokens a step, experts held, hidden and expert width
+GMM_SHAPE = (4096, 8, 2048, 1408)
+
+
+def gmm_err(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def grouped_mm_phase(dev):
+    """Phase 23 (see the module's docstring); returns its record."""
+    from stochqn_tpu_torch import PytreeTrainer, graphs
+    from stochqn_tpu_torch.models import deepseek_v2 as ds
+    from stochqn_tpu_torch.ops.kernels import grouped_mm as gm
+    phase("23. grouped product of the experts vs plain version on the card")
+    T, held, H, W = GMM_SHAPE
+    cfg = ds.DeepseekV2Config(hidden_size=H, moe_intermediate_size=W,
+                              experts_held=held)
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+    x = randn(T, H)
+    idx, w = ds.route(x, randn(H, cfg.n_routed_experts, scale=H ** -0.5),
+                      cfg)
+    tok, _, off = ds.dispatch(idx, w, held)
+    rows = x.index_select(0, tok)
+    bounds = off.tolist()
+    live = bounds[-1]
+    sizes = [b - a for a, b in zip(bounds, bounds[1:])]
+    print(f"  routing: {rows.shape[0]} assignments, {live} to the {held} "
+          f"held experts, rows a held expert {min(sizes)}-{max(sizes)}",
+          flush=True)
+    check(0 < min(sizes) and max(sizes) <= T,
+          "every held expert has rows, none more than the tokens")
+    w_up, w_down = randn(held, H, W, scale=H ** -0.5), \
+        randn(held, W, H, scale=W ** -0.5)
+    hid = randn(rows.shape[0], W)
+    record = {"rows": rows.shape[0], "live_rows": live,
+              "expert_rows": [min(sizes), max(sizes)]}
+    errs = {}
+    tlk.GROUPED_MM_LAUNCHES = 0
+    errs["rows_up"] = gmm_err(gm.grouped_mm(rows, w_up, off, T),
+                              gm._rows_plain(rows, w_up, off))
+    errs["rows_down"] = gmm_err(gm.grouped_mm(hid, w_down, off, T),
+                                gm._rows_plain(hid, w_down, off))
+    check(tlk.GROUPED_MM_LAUNCHES == 2, "one launch a product")
+    a, b = rows.clone().requires_grad_(), w_up.clone().requires_grad_()
+    dy = randn(rows.shape[0], W)
+    dx, dw = torch.autograd.grad(gm.grouped_mm(a, b, off, T), (a, b), dy)
+    errs["backward_dx"] = gmm_err(dx, gm._rows_plain(
+        dy, w_up.transpose(1, 2), off))
+    errs["backward_dw"] = gmm_err(dw, gm._wgrad_plain(rows, dy, off))
+    ta, tb = randn(*rows.shape), randn(*w_up.shape, scale=H ** -0.5)
+    _, jv = torch.func.jvp(lambda p, q: gm.grouped_mm(p, q, off, T),
+                           (rows, w_up), (ta, tb))
+    errs["jvp"] = gmm_err(jv, gm._rows_plain(ta, w_up, off)
+                          + gm._rows_plain(rows, tb, off))
+
+    def f(mm, p, q):
+        return (torch.tanh(mm(p, q)) ** 2).sum()
+    hv = torch.func.jvp(lambda p, q: torch.func.grad(
+        lambda u, v: f(lambda c, d: gm.grouped_mm(c, d, off, T), u, v),
+        argnums=(0, 1))(p, q), (rows, w_up), (ta, tb))[1]
+    a, b = rows.clone().requires_grad_(), w_up.clone().requires_grad_()
+    ga, gb = torch.autograd.grad(f(lambda c, d: gm._rows_plain(c, d, off),
+                                   a, b), (a, b), create_graph=True)
+    ha, hb = torch.autograd.grad((ga * ta).sum() + (gb * tb).sum(), (a, b))
+    errs["hvp_dx"], errs["hvp_dw"] = gmm_err(hv[0], ha), gmm_err(hv[1], hb)
+    del a, b, ga, gb, ha, hb, hv, jv, dx, dw
+    for what, err in errs.items():
+        check(err <= GMM_RTOL, f"{what}: max |kernel - plain| / max |plain| "
+              f"= {err:.3e} <= {GMM_RTOL}")
+    record["max_err_over_max"] = errs
+
+    def plain_rows(p, q):       # the per-expert mm loop, bounds on the host
+        y = p.new_zeros(p.shape[0], q.shape[2])
+        for g in range(held):
+            if bounds[g + 1] > bounds[g]:
+                torch.mm(p[bounds[g]:bounds[g + 1]], q[g],
+                         out=y[bounds[g]:bounds[g + 1]])
+        return y
+
+    def plain_wgrad(p, q):
+        out = p.new_empty(held, p.shape[1], q.shape[1])
+        for g in range(held):
+            torch.mm(p[bounds[g]:bounds[g + 1]].T, q[bounds[g]:bounds[g + 1]],
+                     out=out[g])
+        return out
+    flops = 2.0 * live * H * W
+    nbytes = 4.0 * (live * (H + W) + held * H * W)
+    record["rows_up"] = dict(time_kernel(
+        "grouped_mm rows (x W_up)", lambda: gm.grouped_mm(rows, w_up, off, T),
+        lambda: plain_rows(rows, w_up)), **bound(nbytes, flops))
+    record["wgrad_up"] = dict(time_kernel(
+        "grouped_wgrad (x^T dy)", lambda: gm.grouped_wgrad(rows, dy, off),
+        lambda: plain_wgrad(rows, dy)), **bound(nbytes, flops))
+    for what in ("rows_up", "wgrad_up"):
+        r = record[what]
+        print(f"  {what}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
+              f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}): the "
+              f"kernel at {100 * r['bound_ms'] / r['ms']:.1f}% of it",
+              flush=True)
+    del rows, hid, dy, w_up, w_down, x
+
+    # the main path: the pytree trainer's programs on a small DeepSeek-V2
+    small = ds.DeepseekV2Config(
+        hidden_size=192, num_attention_heads=2, kv_lora_rank=32,
+        qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32,
+        intermediate_size=256, moe_intermediate_size=160, n_routed_experts=16,
+        experts_held=8, num_experts_per_tok=3, num_hidden_layers=3,
+        vocab_size=512)
+    cpu = torch.Generator().manual_seed(5)
+    params = _to(ds.init_params(small, cpu, std=0.05), dev)
+    B, L, seq = 4, 2, 256
+    tokens = torch.randint(0, small.vocab_size, (B, 1, seq + 1),
+                           generator=cpu).to(dev)
+    data = (tokens[..., :-1].contiguous(), tokens[..., 1:].contiguous())
+    tr = PytreeTrainer("SQN", SQNConfig.create(mem_size=3, bfgs_upd_freq=L,
+                                               pairs_bf16=True),
+                       lambda p, bt: ds.loss(p, bt, small), params,
+                       reduction="mean", donate=True, boundary_per_batch=True)
+    state = tr.init()
+    first = float(ds.loss(tr.unravel(state.x), (data[0][0], data[1][0]),
+                          small))
+    reset_launches()
+    tlk.GROUPED_MM_LAUNCHES = 0
+    graphs.reset_stats()
+    state, infos = tr.jit_epochs()(state, data, 0.05, 2)
+    torch.cuda.synchronize()
+    got = tlk.GROUPED_MM_LAUNCHES
+    per_epoch = small.moe_layers * B * sum(GMM_PER_STEP.values())
+    last = float(ds.loss(tr.unravel(state.x), (data[0][0], data[1][0]),
+                         small))
+    codes = set(infos.reshape(-1).tolist())
+    record["main_path"] = {"grouped_mm_launches": got,
+                           "direction_streamed_launches": tlk.LAUNCHES,
+                           "replays": graphs.STATS["replays"],
+                           "loss": [first, last], "codes": sorted(codes)}
+    print(f"  main path: {record['main_path']}", flush=True)
+    check(got == 2 * per_epoch,
+          f"the pytree path's 2 epochs (a warm-up epoch and a replay) "
+          f"launched the grouped product {got} times: {small.moe_layers} MoE "
+          f"layers x {B} steps x {sum(GMM_PER_STEP.values())} an epoch")
+    directions = tlk.LAUNCHES + tlk.DIRECTION_LAUNCHES
+    check(directions == 2 * B and graphs.STATS["replays"] == 1,
+          f"a direction kernel launched once a step ({directions}), one "
+          "replay")
+    check(bool(torch.isfinite(state.x).all()) and codes <= VALID_INFO
+          and last < first,
+          f"finite x, valid codes {sorted(codes)}, loss {first:.5f} -> "
+          f"{last:.5f}")
+    del tr, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
 def check_no_spills(report):
     """ptxas's report of the build (``-Xptxas -v``): every kernel of the
-    four sources is in it, and none spills a byte."""
+    five sources is in it, and none spills a byte."""
     functions = re.findall(r"Compiling entry function '(\w+)'", report)
     spills = [int(b) for b in re.findall(r"(\d+) bytes spill (?:stores|loads)",
                                          report)]
     registers = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
     want = {"direction_parked": 2, "direction_one_read": 1,
             "project_partials": 1, "project_reduce": 1, "adaqn_partials": 3,
-            "adaqn_reduce": 1}
+            "adaqn_reduce": 1, "grouped_mm_rows": 4, "grouped_mm_wgrad": 4}
     found = {stem: sum(stem in f for f in functions) for stem in want}
     check(found == want, f"ptxas reports every kernel: {found}")
     check(len(spills) >= 2 * len(functions)
@@ -4710,15 +4902,17 @@ def main():
     check_no_spills(report)
 
     if "--kernels" in sys.argv[1:]:
-        # the kernel phases alone (3, 6, 9, 10): checks and times, no path
+        # the kernel phases alone (3, 6, 9, 10, 23): checks and times
         _, timing = kernel_phase(dev)
         _, _, adaqn_timing = adaqn_kernel_phase(dev)
         _, _, project_timing = project_kernel_phase(dev)
         _, direction_timing = direction_kernel_phase(dev)
+        grouped = grouped_mm_phase(dev)
         print(json.dumps({"direction_streamed": timing,
                           "project_adaqn": adaqn_timing,
                           "project": project_timing,
-                          "direction": direction_timing}))
+                          "direction": direction_timing,
+                          "grouped_mm": grouped}))
         print(card)
         return 0
 
@@ -4744,6 +4938,7 @@ def main():
     bf16_iterate = bf16_iterate_phase(dev)
     native = native_phase(dev)
     programs = graphs_phase(dev, {"iters_per_s": front_ips})
+    grouped = grouped_mm_phase(dev)
 
     # launches: the counts of the paths driven above (fused SQN, fused adaQN,
     # free-mode SQN at m = 10 and m = 20, free-mode adaQN, fused SQN
@@ -4893,7 +5088,7 @@ def main():
             free_mode_iters_per_s=free_ips,
             interleaved_iters_per_s=ilv_ips["interleaved"],
             block_iters_per_s_in_turns_with_interleaved=ilv_ips["block"]),
-    ]}))
+    ], "grouped_mm": grouped}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

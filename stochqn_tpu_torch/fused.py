@@ -160,9 +160,11 @@ def _batch_at(data, i: int):
     return _tree_map(lambda a: a[i], data)
 
 
-def _cyclic_window(data, i: int, window: int, num_batches: int):
+def _cyclic_window(data, i: int, window: int, num_batches: int,
+                   merge: bool = True):
     """The last ``window`` minibatches ending at batch ``i`` (inclusive),
-    cyclic, merged as :func:`_flat` merges: the JAX package's take of rows
+    cyclic, merged as :func:`_flat` merges (or, with ``merge`` false, the
+    ``[window, bs, ...]`` stack): the JAX package's take of rows
     ``(i + 1 - window + arange(window)) mod B``.  ``i`` is a host int, so
     the window is one slice, or two where it wraps, and no index tensor
     is made."""
@@ -172,7 +174,31 @@ def _cyclic_window(data, i: int, window: int, num_batches: int):
         if start >= 0:
             return a[start:i + 1]
         return torch.cat([a[start % num_batches:], a[:i + 1]])
-    return _flat(_tree_map(take, data))
+    stack = _tree_map(take, data)
+    return _flat(stack) if merge else stack
+
+
+def _per_batch(fn: Callable, reduction: str) -> Callable:
+    """``fn(x, [v,] batch)`` made to take a ``[k, bs, ...]`` stack of
+    minibatches in place of their merged batch: ``fn`` on each minibatch
+    in turn, the results summed in float32 (or the iterate's wider dtype)
+    and, for ``reduction="mean"``, divided by ``k``.  For a function that
+    sums over its rows, or averages over them with ``k`` equal
+    minibatches, that is ``fn`` on the merged batch in exact arithmetic,
+    and only one minibatch's work is alive at a time."""
+    def each(*args):
+        *head, stack = args
+        x = head[0]
+        acc_t = torch.promote_types(x.dtype, torch.float32)
+        k = _first_leaf(stack).shape[0]
+        acc = None
+        for i in range(k):
+            part = fn(*head, _batch_at(stack, i)).to(acc_t)
+            acc = part if acc is None else acc + part
+        if reduction == "mean":
+            acc = acc / k
+        return acc.to(x.dtype)
+    return each
 
 
 def olbfgs_step(cfg: OLBFGSConfig, grad_fn: GradFn, state: OLBFGSState,
@@ -372,18 +398,20 @@ def _adaqn_boundary(cfg: AdaQNConfig, grad_fn: GradFn,
 def sqn_step(cfg: SQNConfig, grad_fn: GradFn, state: SQNState, batch: Batch,
              big_batch_thunk: Callable[[], Batch], step_size: torch.Tensor,
              boundary: bool, hess_vec_fn: Optional[HessVecFn] = None,
-             comm=None) -> Tuple[SQNState, torch.Tensor]:
+             comm=None, big_grad_fn: Optional[GradFn] = None
+             ) -> Tuple[SQNState, torch.Tensor]:
     """One SQN iteration of the generic layout.  ``boundary`` is the JAX
     package's ``lax.cond`` predicate ``niter % upd_freq == 0`` after this
     step, decided by the caller on its host count of iterations (never
-    read from ``state.niter``)."""
+    read from ``state.niter``).  ``big_grad_fn`` (``grad_fn`` where None)
+    takes the big batch at the boundary."""
     state, bad = _sqn_base(cfg, grad_fn, state, batch, step_size, comm)
     if not boundary:
         with label("infos"):
             return state, step_info(bad)
     with label("boundary"):
-        return _sqn_boundary(cfg, grad_fn, state, big_batch_thunk(), bad,
-                             hess_vec_fn, comm)
+        return _sqn_boundary(cfg, big_grad_fn or grad_fn, state,
+                             big_batch_thunk(), bad, hess_vec_fn, comm)
 
 
 def adaqn_step(cfg: AdaQNConfig, grad_fn: GradFn, obj_fn: Optional[ObjFn],
@@ -438,6 +466,13 @@ class FusedTrainer:
         (functions that sum over their rows, nothing outside the sum) or
         ``"mean"`` (functions that average over their rows, everything
         inside the mean); see :mod:`stochqn_tpu_torch.parallel.evaluate`.
+      boundary_per_batch: SQN only: take the boundary's Hessian-vector
+        product (and, with ``cfg.use_grad_diff``, the big-batch gradient)
+        over the round's minibatches one at a time (:func:`_per_batch`),
+        combined as ``reduction`` says, in place of one call on their
+        merged batch.  The same value in exact arithmetic, for a model
+        whose work on the merged batch does not fit beside the state;
+        off by default (the merged batch).
       donate: whether the programs of :meth:`jit_epoch`,
         :meth:`jit_epochs`, :meth:`jit_epochs_scheduled` and
         :meth:`run_epochs` consume the state passed in, as the JAX
@@ -446,7 +481,11 @@ class FusedTrainer:
         copy of the graph's buffers; on the CPU the eager loop runs on a
         copy).  On: the state passed in is consumed, and on the card the
         returned state is the graph's own buffers, which the next call
-        takes without a copy and overwrites.
+        takes without a copy and overwrites.  The first call of a new
+        state layout takes the state passed in as those buffers, and a
+        new graph's warm-up epoch runs on them as that call's epoch
+        (:mod:`stochqn_tpu_torch.graphs`): one copy of the state, so a
+        state that fills the card fits.
 
     On an NCCL mesh the trainer's CUDA graphs hold NCCL kernels: drop the
     trainer and run ``gc.collect()`` before ``torch.distributed.
@@ -463,6 +502,7 @@ class FusedTrainer:
     mesh: Any = None
     reduction: str = "sum"
     donate: bool = False
+    boundary_per_batch: bool = False
 
     # the CUDA graphs and the cached jit_* callables (the JAX package's
     # _epoch_jit and the others)
@@ -489,19 +529,32 @@ class FusedTrainer:
                 "adaQN with max_incr needs an objective function "
                 "(pass obj_fn=..., or max_incr=None to disable the "
                 "function-value guard)")
+        if self.boundary_per_batch and kind != "SQN":
+            raise ValueError("boundary_per_batch is an option of SQN's "
+                             "boundary")
         self._evaluators()
 
     def _evaluators(self):
         """The functions the steps call: the user's as given with no mesh;
         on a mesh, wrapped to take this rank's slice of ``x`` and rows
         and to return this rank's slice of the sum over the data axis
-        (:mod:`stochqn_tpu_torch.parallel.evaluate`)."""
+        (:mod:`stochqn_tpu_torch.parallel.evaluate`).  SQN's boundary
+        takes ``_big_grad`` and ``_big_hvp``: those on the merged big
+        batch, or per batch (``boundary_per_batch``)."""
         self._comm = None
         self._grad, self._hvp = self.grad_fn, self.hess_vec_fn
         self._obj = self._val_obj = self.obj_fn
         self._pair_grads = None
-        if self.mesh is None:
-            return
+        if self.mesh is not None:
+            self._mesh_evaluators()
+        self._big_grad, self._big_hvp = self._grad, self._hvp
+        if self.boundary_per_batch:
+            self._big_grad = _per_batch(self._grad, self.reduction)
+            self._big_hvp = _per_batch(
+                self._hvp if self._hvp is not None
+                else hvp_from_grad(self._grad), self.reduction)
+
+    def _mesh_evaluators(self):
         comm = self._comm = MeshComm(self.mesh)
         red = self.reduction
         self._grad = data_parallel_grad(self.grad_fn, comm, red)
@@ -567,10 +620,12 @@ class FusedTrainer:
                               _batch_at(round_data, i), eta, comm)
             bads.append(bad)
         with label("boundary"):
-            big = _flat(round_data)
+            big = round_data if self.boundary_per_batch else \
+                _flat(round_data)
             if self.optimizer == "SQN":
-                state, binfo = _sqn_boundary(self.cfg, self._grad, state,
-                                             big, bads[-1], self._hvp, comm)
+                state, binfo = _sqn_boundary(self.cfg, self._big_grad, state,
+                                             big, bads[-1], self._big_hvp,
+                                             comm)
             else:
                 fval, obj = ((self.val_data, self._val_obj)
                              if self.val_data is not None
@@ -609,11 +664,13 @@ class FusedTrainer:
             phase = (phase + 1) % L
 
             def big(i=i):
-                return _cyclic_window(data, i, window, num_batches)
+                return _cyclic_window(data, i, window, num_batches,
+                                      not self.boundary_per_batch)
             if self.optimizer == "SQN":
                 state, info = sqn_step(self.cfg, self._grad, state,
                                        _batch_at(data, i), big, eta,
-                                       phase == 0, self._hvp, self._comm)
+                                       phase == 0, self._big_hvp, self._comm,
+                                       self._big_grad)
             else:
                 fval, obj = (((lambda: self.val_data), self._val_obj)
                              if self.val_data is not None else

@@ -35,10 +35,18 @@ generic from a start phase ``niter % upd_freq``: up to ``upd_freq``
 graphs where ``B % upd_freq != 0``).  The layout is decided
 on the host before the epoch, as the eager driver decides it.
 
-Before its capture a graph's epoch runs once eagerly on a scratch copy of
-the state, on the capture stream: that builds the kernels, fills their
-per-device caches, and makes cuBLAS's first call on that stream, none of
-which may happen inside a capture; the caller's state is not advanced.
+Before its capture a graph's epoch runs once eagerly on the capture
+stream: that builds the kernels, fills their per-device caches, and makes
+cuBLAS's first call on that stream, none of which may happen inside a
+capture.  Without ``donate`` the warm-up runs on a scratch copy of the
+loaded state, which it does not advance.  With ``donate`` the caller's
+state is consumed anyway, so no second copy is made: a new family takes
+the state passed in as its buffers (each tensor with a storage of its
+own; one that shares another's gets a buffer of its own), a new graph's
+warm-up runs on the buffers themselves and is that call's epoch (nothing
+is replayed for it), and the allocator's cached blocks are returned to
+the card before the capture, whose pool then holds the epoch's work.  A
+state that fills the card has room for no other copy.
 Nothing falls back: a capture or replay that fails raises, naming the
 user function that read the host where it was one.
 
@@ -236,14 +244,26 @@ class _Graph:
         cap.wait_stream(cur)
         counted = dict(tlk.read_launches())
         t0 = time.perf_counter()
+        # the infos of a warm-up that was the call's epoch, not yet taken
+        self.pending = None
         with torch.cuda.stream(cap):
-            # the warm-up epoch, on a scratch copy of the loaded state
+            # the warm-up epoch, on a scratch copy of the loaded state, or
+            # (donate) in place on the buffers
             with metrics.span("stochqn.warmup"):
-                run(copy_tree(family.state_tree()), family.inputs_tree(),
-                    family.eta)
+                if family.in_place:
+                    out, self.pending = run(family.state_tree(),
+                                            family.inputs_tree(), family.eta)
+                    family.write_back(out)
+                    del out     # the epoch's outputs, freed before capture
+                else:
+                    run(copy_tree(family.state_tree()), family.inputs_tree(),
+                        family.eta)
             self.warm_launches = {k: v - counted[k]
                                   for k, v in tlk.read_launches().items()
                                   if v != counted[k]}
+            if family.in_place:
+                gc.collect()
+                torch.cuda.empty_cache()
             t1 = time.perf_counter()
             with metrics.span("stochqn.capture"):
                 self._capture(family, run, cap)
@@ -311,6 +331,19 @@ class _Graph:
         return self.infos
 
 
+def _own_buffers(leaves: List[torch.Tensor]) -> List[torch.Tensor]:
+    """``leaves`` as buffers, except a tensor whose storage an earlier one
+    holds (a write-back to either would overwrite the other): that one
+    gets a buffer of its own."""
+    seen = set()
+    out = []
+    for t in leaves:
+        key = _storage(t)
+        out.append(torch.empty_like(t) if key in seen else t)
+        seen.add(key)
+    return out
+
+
 class _Family:
     """The static buffers of one state layout, data layout and step dtype,
     and the graphs captured on them, one per epoch layout."""
@@ -318,8 +351,11 @@ class _Family:
     def __init__(self, trainer, state, inputs, eta_dtype, epoch_fn):
         self.trainer = trainer
         self.epoch_fn = epoch_fn        # (state, inputs, eta, layout) -> ...
+        # the donated state becomes the buffers; warm-ups run on them
+        self.in_place = trainer.donate
         leaves, self.state_spec = flatten(state)
-        self.state = [torch.empty_like(t) for t in leaves]
+        self.state = _own_buffers(leaves) if self.in_place else \
+            [torch.empty_like(t) for t in leaves]
         leaves, self.inputs_spec = flatten(inputs)
         self.inputs = [torch.empty_like(t) for t in leaves]
         self.loaded: List[Optional[Tuple[Any, int]]] = [None] * len(leaves)
@@ -445,9 +481,12 @@ class EpochPrograms:
                     fam.load(state, inputs, steps[e])
                 layout = tr._layout(num_batches, phase, aligned is False)
                 graph = fam.graph(layout)
-                with metrics.span("stochqn.replay"):
-                    out = graph.replay()
-                metrics.count("copy_back_bytes", graph.copy_bytes)
+                if graph.pending is not None:   # the warm-up ran it
+                    out, graph.pending = graph.pending, None
+                else:
+                    with metrics.span("stochqn.replay"):
+                        out = graph.replay()
+                    metrics.count("copy_back_bytes", graph.copy_bytes)
                 infos[e].copy_(out)
                 state = fam.state_tree()
                 phase = (phase + num_batches) % L

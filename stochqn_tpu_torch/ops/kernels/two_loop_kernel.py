@@ -34,7 +34,9 @@ in one pass, the port of the Pallas ``project_adaqn``
 Each source's header says what bounds its kernel and how it is designed.
 The sources are compiled by ``nvcc`` for ``sm_90a`` at first use, one
 ``nvcc`` per source started together, linked into one library under
-``stochqn_tpu_torch/build/<source hash>/`` and loaded with ctypes.
+``stochqn_tpu_torch/build/<source hash>/`` and loaded with ctypes.  The
+library also holds the grouped product of a mixture of experts
+(``csrc/grouped_mm.cu``), which :mod:`.grouped_mm` wraps.
 
 Each wrapper checks its arguments, then dispatches on the device: CPU
 tensors go to its plain version, CUDA tensors to the kernel.  There is no
@@ -68,11 +70,13 @@ DIRECTION_LAUNCHES = 0
 PROJECT_LAUNCHES = 0
 # Kernel launches made by :func:`project_adaqn` (one per projection).
 PROJECT_ADAQN_LAUNCHES = 0
+# Kernel launches made by ``ops.kernels.grouped_mm`` (one per product).
+GROUPED_MM_LAUNCHES = 0
 # Launches recorded into the CUDA graph being captured, by counter name:
 # they run, and are counted, at each replay of the graph.
 CAPTURED: dict = {}
 _COUNTERS = ("LAUNCHES", "DIRECTION_LAUNCHES", "PROJECT_LAUNCHES",
-             "PROJECT_ADAQN_LAUNCHES")
+             "PROJECT_ADAQN_LAUNCHES", "GROUPED_MM_LAUNCHES")
 
 
 def _launched(counter: str) -> None:
@@ -98,7 +102,7 @@ def read_launches() -> dict:
 _CSRC = Path(__file__).resolve().parents[2] / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build"
 _SOURCES = ("direction_streamed.cu", "direction.cu", "project.cu",
-            "project_adaqn.cu")
+            "project_adaqn.cu", "grouped_mm.cu")
 _HEADERS = ("projection.cuh",)    # included by sources: hashed, not compiled
 _COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                   "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -497,6 +501,13 @@ def _library():
         fn = lib.sqn_project_scratch
         fn.argtypes = [i32, ctypes.c_longlong, i32]
         fn.restype = ctypes.c_longlong
+        i64 = ctypes.c_longlong
+        fn = lib.grouped_mm_rows_launch
+        fn.argtypes = [ptr, ptr, ptr, ptr, i32] + [i64] * 11 + [ptr]
+        fn.restype = i32
+        fn = lib.grouped_mm_wgrad_launch
+        fn.argtypes = [ptr, ptr, ptr, ptr, i32] + [i64] * 6 + [ptr]
+        fn.restype = i32
         lib.sqn_direction_max_mem.restype = i32
         if lib.sqn_direction_max_mem() != _MAX_MEM:
             raise RuntimeError("two_loop_kernel: the built library "

@@ -32,11 +32,31 @@ from stochqn_tpu_torch.ops.two_loop import (_chrono_perm, _mem_mm, _psum,
                                             _sharded)
 
 
+# The most bytes of a pair buffer upcast at once by :func:`_gram_cols`: a
+# larger bfloat16 buffer is taken in chunks of columns, so that no float32
+# copy of all of it is made (at n = 5e8 and m = 10 that copy is 43 GB).
+UPCAST_CHUNK_BYTES = 1 << 30
+
+
 def _gram_cols(buf: torch.Tensor, row_s: torch.Tensor, row_y: torch.Tensor,
                acc_t: torch.dtype) -> torch.Tensor:
-    """``buf @ [row_s; row_y]^T`` as two matvecs stacked into ``[2m, 2]``."""
-    return torch.stack([_mem_mm(buf, row_s, acc_t),
-                        _mem_mm(buf, row_y, acc_t)], dim=1)
+    """``buf @ [row_s; row_y]^T`` as two matvecs stacked into ``[2m, 2]``;
+    a buffer whose upcast takes more than :data:`UPCAST_CHUNK_BYTES` is
+    upcast and multiplied a chunk of columns at a time, the chunks'
+    products summed in ``acc_t``."""
+    rows, n = buf.shape
+    width = torch.finfo(acc_t).bits // 8
+    step = max(1, UPCAST_CHUNK_BYTES // (rows * width))
+    if buf.dtype == acc_t or n <= step:
+        return torch.stack([_mem_mm(buf, row_s, acc_t),
+                            _mem_mm(buf, row_y, acc_t)], dim=1)
+    out = None
+    for c in range(0, n, step):
+        part = buf[:, c:c + step].to(acc_t)
+        cols = torch.stack([part @ row_s[c:c + step].to(acc_t),
+                            part @ row_y[c:c + step].to(acc_t)], dim=1)
+        out = cols if out is None else out + cols
+    return out
 
 
 def direction_is_bad(direction: torch.Tensor, comm=None) -> torch.Tensor:

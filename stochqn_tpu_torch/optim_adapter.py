@@ -157,28 +157,46 @@ class PytreeTrainer:
         ``loss_fn``).
       val_data: optional batch on the state's device for adaQN's guard.
       mesh, reduction: a sharded run, as :class:`FusedTrainer` takes them.
+        ``reduction`` also says how ``boundary_per_batch`` combines the
+        minibatches: ``"mean"`` for a ``loss_fn`` that averages over its
+        rows.
       donate: forward of ``FusedTrainer(donate=...)``, off by default:
         the state passed to :meth:`run_epochs` or to the program of
         :meth:`jit_epoch` stays readable; with ``True`` it is consumed
         (keep using the returned state).
+      boundary_per_batch: forward of the :class:`FusedTrainer` option:
+        SQN's Hessian-vector product taken over the round's minibatches
+        one at a time.
+
+    The gradient is taken with respect to the structure's tensors (views
+    of ``x``) and concatenated once: a gradient with respect to ``x``
+    itself would give each view's backward a zero-filled ``[n]`` buffer.
     """
 
     def __init__(self, optimizer: str, cfg: Any, loss_fn: Callable,
                  params_template: Any, val_data: Any = None, mesh=None,
-                 reduction: str = "sum", donate: bool = False):
+                 reduction: str = "sum", donate: bool = False,
+                 boundary_per_batch: bool = False):
         if isinstance(params_template, torch.nn.Module):
             params_template = dict(params_template.named_parameters())
         self._template = params_template
         self._shapes = [(t.shape, t.dtype) for t in _leaves(params_template)]
         self.loss_fn = loss_fn
+        tree_grad = torch.func.grad(loss_fn)
 
         def flat_loss(xflat, batch):
             return loss_fn(self.unravel(xflat), batch)
 
-        self.trainer = FusedTrainer(optimizer, cfg, torch.func.grad(flat_loss),
+        def flat_grad(xflat, batch):
+            grads = tree_grad(self.unravel(xflat), batch)
+            return torch.cat([g.reshape(-1).to(xflat.dtype)
+                              for g in _leaves(grads)])
+
+        self.trainer = FusedTrainer(optimizer, cfg, flat_grad,
                                     obj_fn=flat_loss, val_data=val_data,
                                     mesh=mesh, reduction=reduction,
-                                    donate=donate)
+                                    donate=donate,
+                                    boundary_per_batch=boundary_per_batch)
 
     def unravel(self, xflat: torch.Tensor):
         """Views of ``xflat`` in the template's structure."""
@@ -204,6 +222,12 @@ class PytreeTrainer:
         """:meth:`FusedTrainer.jit_epoch`: on the card one CUDA-graph
         replay per epoch."""
         return self.trainer.jit_epoch()
+
+    def jit_epochs(self):
+        """:meth:`FusedTrainer.jit_epochs`: ``fn(state, data, step_size,
+        nepochs, aligned=None)``, on the card ``nepochs`` replays of the
+        epoch's CUDA graph."""
+        return self.trainer.jit_epochs()
 
     @property
     def eager_only(self) -> bool:

@@ -36,10 +36,21 @@ always on, at a call's granularity, never an iteration's:
   profiler's device operations of one replay, in start order, fall to the
   labels by position.  A captured SQN epoch's labels: ``gradient``,
   ``direction``, ``guard``, ``update`` a step, ``boundary`` a round,
-  ``infos``, ``copy_back``.
+  ``infos``, ``copy_back``.  A label inside another records its own range
+  as ``outer/inner`` (``gradient/attention``), and the outer's range is
+  the same as without it.  Labels name what the capturing thread records
+  inside their bodies: a model's forward pass (and, inside a jvp, its
+  tangents); its backward pass runs later, in autograd's engine, and falls
+  under the outer label alone.
+* :func:`device_counter` ``(name, shape, device)``: an int64 tensor on the
+  device that the program adds to inside its captured epochs, with no
+  host read (``expert_tokens``: the tokens routed to each expert of each
+  MoE layer of ``models.deepseek_v2``); read once by :func:`snapshot`,
+  zeroed in place by :func:`reset`.
 
 An operator snapshots the records with :func:`snapshot` (copies, safe to
-keep) and sets them to zero with :func:`reset`; ``graphs.reset_stats()``
+keep; the device counters are read on the host there, once) and sets them
+to zero with :func:`reset`; ``graphs.reset_stats()``
 clears the graphs' counts and label maps.  :func:`trace` shows the spans
 in TensorBoard above the card's kernels.
 
@@ -66,6 +77,8 @@ from stochqn_tpu_torch.core.enums import INFO_NAMES, Info
 SPANS: Dict[str, list] = {}
 # name -> count since reset()
 COUNTERS: Dict[str, int] = {}
+# name -> int64 tensor on a device, added to by the captured epochs
+DEVICE_COUNTERS: Dict[str, torch.Tensor] = {}
 _NAMES = ("host_reads", "copy_in_bytes", "copy_back_bytes",
           "fit_programs_reused", "fit_programs_built")
 _lock = threading.Lock()
@@ -83,10 +96,13 @@ _local = _Thread()
 
 
 def reset() -> None:
-    """Clear :data:`SPANS` and set every counter to 0."""
+    """Clear :data:`SPANS` and set every counter to 0 (the device
+    counters in place: a captured graph keeps adding to them)."""
     with _lock:
         SPANS.clear()
         COUNTERS.update(dict.fromkeys(_NAMES, 0))
+        for t in DEVICE_COUNTERS.values():
+            t.zero_()
 
 
 reset()
@@ -94,10 +110,29 @@ reset()
 
 def snapshot() -> dict:
     """Copies of :data:`SPANS` and :data:`COUNTERS`:
-    ``{"spans": {...}, "counters": {...}}``."""
+    ``{"spans": {...}, "counters": {...}}``, and, where a program made
+    any, ``"device_counters"``: each of :data:`DEVICE_COUNTERS` as nested
+    lists (one read of the device each)."""
     with _lock:
-        return {"spans": {k: list(v) for k, v in SPANS.items()},
-                "counters": dict(COUNTERS)}
+        out = {"spans": {k: list(v) for k, v in SPANS.items()},
+               "counters": dict(COUNTERS)}
+        if DEVICE_COUNTERS:
+            out["device_counters"] = {k: t.tolist()
+                                      for k, t in DEVICE_COUNTERS.items()}
+        return out
+
+
+def device_counter(name: str, shape: tuple, device) -> torch.Tensor:
+    """The device counter ``name`` (:data:`DEVICE_COUNTERS`), made at its
+    first use as zeros of ``shape`` on ``device``; the same tensor after
+    that, so that a graph captured once adds to it at every replay."""
+    t = DEVICE_COUNTERS.get(name)
+    if t is None or tuple(t.shape) != tuple(shape) or \
+            t.device != torch.device(device):
+        with _lock:
+            t = DEVICE_COUNTERS[name] = torch.zeros(
+                shape, dtype=torch.int64, device=device)
+    return t
 
 
 def count(name: str, k: int = 1) -> None:
@@ -158,7 +193,7 @@ class Capture:
     def __init__(self, nodes):
         self.nodes = nodes
         self.marks: List[tuple] = []
-        self.open = False               # a label's body is running
+        self.open: List[str] = []       # the labels whose bodies run
 
     def map(self) -> tuple:
         """``(node_count, [(label, first, end), ...])`` in node indices."""
@@ -174,14 +209,14 @@ class _Label:
         self.cap, self.name = cap, name
 
     def __enter__(self) -> None:
-        self.cap.open = True
+        self.cap.open.append(self.name)
         self.first = self.cap.nodes.mark()
 
     def __exit__(self, kind, *exc) -> None:
-        self.cap.open = False
+        path = "/".join(self.cap.open)
+        self.cap.open.pop()
         if kind is None:        # a failed capture is void: leave its error
-            self.cap.marks.append((self.name, self.first,
-                                   self.cap.nodes.mark()))
+            self.cap.marks.append((path, self.first, self.cap.nodes.mark()))
 
 
 _NOTHING = contextlib.nullcontext()
@@ -190,10 +225,11 @@ _NOTHING = contextlib.nullcontext()
 def label(name: str):
     """``with label(name): ...``: while this thread captures a graph
     (:func:`capturing`), record the range of nodes the body adds under
-    ``name``; a label inside another adds nothing to the outer's.  Outside
-    a capture it does nothing: one attribute read."""
+    ``name``, or ``outer/name`` inside another label, whose range it
+    leaves as it is.  Outside a capture it does nothing: one attribute
+    read."""
     cap = _local.capture
-    if cap is None or cap.open:
+    if cap is None:
         return _NOTHING
     return _Label(cap, name)
 

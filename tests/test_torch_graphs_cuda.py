@@ -147,10 +147,11 @@ def test_step_change_on_cached_graph(dev, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("donate", [False, True])
 def test_warm_up_leaves_the_callers_state(dev, donate):
-    """The first call warms up and captures on a scratch copy: the state
-    passed in (donate=False) is unchanged, and the result is one epoch
-    from it, not two.  With donate=True the result is the graph's own
-    buffers, which the next call takes without a copy."""
+    """The first call warms up and captures: with donate=False on a
+    scratch copy, the state passed in is unchanged, and the result is one
+    epoch from it, not two.  With donate=True the state passed in becomes
+    the graph's buffers and the warm-up is the first call's epoch; the
+    result is those buffers, which the next call takes without a copy."""
     data, x0 = _problem(dev, 8)
     eager, graphed = _trainer("sqn"), _trainer("sqn", donate=donate)
     s0 = graphed.init(x0)

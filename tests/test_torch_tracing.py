@@ -35,11 +35,18 @@ N, BS, M, L = 6, 2, 3, 4
 STEP = ["gradient", "direction", "guard", "update"]
 
 
-def _trainer(**kw):
+def _trainer(inner=False, **kw):
+    """SQN on a quadratic; with ``inner``, its gradient's two products
+    labelled ``mean`` and ``product`` inside the trainer's labels."""
     a = torch.from_numpy(np.diag(np.linspace(0.5, 3.0, N)))
 
     def grad(x, batch):
-        return a @ (x - batch.mean(0))
+        if not inner:
+            return a @ (x - batch.mean(0))
+        with metrics.label("mean"):
+            r = x - batch.mean(0)
+        with metrics.label("product"):
+            return a @ r
 
     def hess_vec(x, v, batch):
         return a @ v
@@ -175,10 +182,10 @@ class _Nodes(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def _captured_map(nb, generic):
+def _captured_map(nb, generic, **kw):
     """One SQN epoch as ``graphs._Graph._capture`` records it, the node
     count stubbed by :class:`_Nodes`: ``(node_count, ranges)``."""
-    tr = _trainer()
+    tr = _trainer(**kw)
     data = _data(nb)
     state = tr.init(torch.zeros(N, dtype=F64))
     fam = graphs.EpochPrograms(tr).family("batched", state, data, F64, None)
@@ -211,6 +218,34 @@ def test_labels_cover_every_node_in_order(nb, generic):
     assert all(first < end for _, first, end in ranges)
 
 
+@pytest.mark.parametrize("nb,generic", [(8, False), (8, True), (10, True)])
+def test_nested_labels_keep_the_outer_ranges(nb, generic):
+    """Labels inside the gradient record ``gradient/mean`` and
+    ``gradient/product`` inside each ``gradient`` range; the SQN epoch's
+    own map is the one it has without them, entry for entry."""
+    count, ranges = _captured_map(nb, generic)
+    n_count, nested = _captured_map(nb, generic, inner=True)
+    assert n_count == count
+    assert [r for r in nested if "/" not in r[0]] == ranges
+    grads = [r for r in ranges if r[0] == "gradient"]
+    for inner in ("mean", "product"):
+        mine = [r for r in nested if r[0] == f"gradient/{inner}"]
+        assert len(mine) == len(grads)
+        assert all(g[1] <= m[1] < m[2] <= g[2] for g, m in zip(grads, mine))
+
+
+def test_device_counters_read_once_and_reset_in_place():
+    metrics.reset()
+    c = metrics.device_counter("expert_tokens", (2, 3), "cpu")
+    assert metrics.device_counter("expert_tokens", (2, 3), "cpu") is c
+    c[1].index_add_(0, torch.tensor([0, 2, 2]), torch.ones(3, dtype=c.dtype))
+    snap = metrics.snapshot()
+    assert snap["device_counters"]["expert_tokens"] == [[0, 0, 0], [1, 0, 2]]
+    metrics.reset()
+    assert metrics.DEVICE_COUNTERS["expert_tokens"] is c
+    assert int(c.sum()) == 0
+
+
 def test_label_outside_a_capture_records_nothing():
     before = list(graphs.STATS["labels"])
     assert metrics.label("gradient") is metrics.label("boundary")
@@ -220,12 +255,12 @@ def test_label_outside_a_capture_records_nothing():
     with _Nodes() as nodes, metrics.capturing(nodes) as cap:
         with metrics.label("boundary"):
             torch.ones(2) + 1
-            with metrics.label("gradient"):      # inside: nothing of its own
+            with metrics.label("gradient"):      # inside: a range of its own
                 torch.ones(2) + 1
-    assert cap.map() == (4, [("boundary", 0, 4)])
+    assert cap.map() == (4, [("boundary/gradient", 2, 4), ("boundary", 0, 4)])
     with metrics.label("gradient"):
         pass
-    assert len(cap.marks) == 1
+    assert len(cap.marks) == 2
 
 
 def test_a_failing_label_keeps_its_error():

@@ -121,6 +121,11 @@ class ReplayedGraph:
     def __init__(self, family, run):
         self.family, self.run = family, run
         self.launches, self.replays, self.copy_bytes = {}, 0, 0
+        self.pending = None
+        if family.in_place:     # the warm-up on the buffers is the epoch
+            out, self.pending = run(family.state_tree(),
+                                    family.inputs_tree(), family.eta)
+            family.write_back(out)
 
     def replay(self):
         from stochqn_tpu_torch.parallel import comm
