@@ -301,6 +301,10 @@ N_FEATURES, N_CLASSES, BATCH_SIZE, NUM_BATCHES = 1836, 159, 50, 120
 UPD_FREQ, MEM_SIZE, REG, STEP = 20, 10, 1e-1, 1e-2
 N_FLAGSHIP = (N_FEATURES + 1) * N_CLASSES          # 292,083
 M20 = 20     # the mem_size whose pairs no H100 parks whole at n = 292,083
+# The pairs of the benchmark's cells that run direction_streamed, m = 10:
+# sqn_criteo.graph's (float32, 80 MB) and sqn_dsv2lite.graph's (bfloat16,
+# 21.4 GB).
+N_CRITEO, N_DSV2LITE = 1_000_000, 535_060_992
 
 # The JAX package (stochqn_tpu) on the CPU, on exactly this data:
 # FusedTrainer("SQN", SQNConfig.create(mem_size=10, bfgs_upd_freq=20))
@@ -800,7 +804,8 @@ def kernel_phase(dev):
                     lambda: tlk.direction_streamed_ref(*args),
                     streamed_library(mem, args))
     worst20, timing["m20"] = streamed_m20(dev, gen)
-    return max(worst, worst20, streamed_shapes(dev, gen)), timing
+    worst_cells, timing["cells"] = streamed_cells(dev, gen)
+    return max(worst, worst20, worst_cells, streamed_shapes(dev, gen)), timing
 
 
 def streamed_library(mem, args):
@@ -865,6 +870,100 @@ def streamed_shapes(dev, gen):
           "the same bits twice at m in {1, 10, 20, 32}, n = 2001 ... 2008, "
           "both storages")
     return worst
+
+
+def split_line(m, n, storage, dev):
+    """The plan's split of W's columns at this shape, as a line."""
+    split = tlk.direction_streamed_split(m, n, storage, dev)
+    check(sum(split.values()) == n, f"m={m} n={n} {str(storage)[6:]}: the "
+          f"split adds up to n: {split}")
+    return ", ".join(f"{k} {v} ({100 * v / n:.1f}%)"
+                     for k, v in split.items())
+
+
+def direction_by_blocks(s, y, g, c, gamma, block=1 << 25):
+    """:func:`tlk.direction_streamed_ref`'s math over blocks of columns, for
+    pairs whose float32 copy the card cannot hold."""
+    m, n = s.shape
+    wg = torch.zeros(2 * m, device=g.device)
+    for j in range(0, n, block):
+        w = torch.cat([s[:, j:j + block], y[:, j:j + block]]).float()
+        wg += w @ g[j:j + block]
+    u = c @ wg
+    d = torch.empty_like(g)
+    for j in range(0, n, block):
+        w = torch.cat([s[:, j:j + block], y[:, j:j + block]]).float()
+        d[j:j + block] = gamma * g[j:j + block] + u @ w
+    return d
+
+
+def streamed_cells(dev, gen):
+    """The streamed kernel at the pairs of the benchmark cells that run it,
+    m = 10: Criteo's (float32, n = 1,000,000) against its plain version
+    and the same bits twice, timed beside the plain version, the library
+    sequence and its bound; DeepSeek-V2-Lite's (bfloat16, n = 535,060,992)
+    against the plain math over blocks of columns and the same bits twice,
+    timed beside its bound.  Each with the plan's split of W's columns:
+    parked in shared memory, read again from L2, read again from device
+    memory."""
+    worst, out = 0.0, {}
+    args = random_direction_args(MEM_SIZE, N_CRITEO, torch.float32, dev, gen)
+    got = tlk.direction_streamed(*args)
+    again = tlk.direction_streamed(*args)
+    want = tlk.direction_streamed_ref(*args)
+    torch.cuda.synchronize()
+    worst = float((got - want).abs().max())
+    check(bool(torch.equal(got, again)) and bool(torch.allclose(
+        got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)),
+          f"m={MEM_SIZE} n={N_CRITEO} float32: the same bits twice, "
+          f"max_abs_err={worst:.3e} within rtol={KERNEL_RTOL} "
+          f"atol={KERNEL_ATOL}")
+    print(f"  split at m={MEM_SIZE} n={N_CRITEO} float32: "
+          f"{split_line(MEM_SIZE, N_CRITEO, torch.float32, dev)}", flush=True)
+    t = time_kernel(f"m={MEM_SIZE} n={N_CRITEO} float32",
+                    lambda: tlk.direction_streamed(*args),
+                    lambda: tlk.direction_streamed_ref(*args),
+                    direction_library(torch.cat(args[:2]), *args[2:]))
+    t.update(direction_bound(MEM_SIZE, N_CRITEO))
+    print(f"  bound at m={MEM_SIZE} n={N_CRITEO} float32: "
+          f"{t['bound_ms']:.5f} ms by {t['bound_by']}; kernel at "
+          f"{100 * t['bound_ms'] / t['ms']:.1f}% of it warm, "
+          f"{100 * t['bound_ms'] / t['cold_ms']:.1f}% with L2 flushed",
+          flush=True)
+    out["criteo"] = t
+    del args, got, again, want
+
+    s = torch.randn(MEM_SIZE, N_DSV2LITE, device=dev, generator=gen,
+                    dtype=torch.bfloat16)
+    y = s + 0.3 * torch.randn(MEM_SIZE, N_DSV2LITE, device=dev,
+                              generator=gen, dtype=torch.bfloat16)
+    args = (s, y, torch.randn(N_DSV2LITE, device=dev, generator=gen),
+            torch.randn(2 * MEM_SIZE, 2 * MEM_SIZE, device=dev,
+                        generator=gen) / N_DSV2LITE,
+            torch.full((), 0.7, device=dev))
+    got = tlk.direction_streamed(*args)
+    same = bool(torch.equal(got, tlk.direction_streamed(*args)))
+    want = direction_by_blocks(*args)
+    torch.cuda.synchronize()
+    max_abs = float((got - want).abs().max())
+    worst = max(worst, max_abs)
+    check(same and bool(torch.allclose(got, want, rtol=KERNEL_RTOL,
+                                       atol=KERNEL_ATOL)),
+          f"m={MEM_SIZE} n={N_DSV2LITE} bfloat16: the same bits twice, "
+          f"max_abs_err={max_abs:.3e} within rtol={KERNEL_RTOL} "
+          f"atol={KERNEL_ATOL}")
+    del got, want
+    print(f"  split at m={MEM_SIZE} n={N_DSV2LITE} bfloat16: "
+          f"{split_line(MEM_SIZE, N_DSV2LITE, torch.bfloat16, dev)}",
+          flush=True)
+    t = {"ms": device_ms(lambda: tlk.direction_streamed(*args), 5),
+         **direction_bound(MEM_SIZE, N_DSV2LITE, 2)}
+    print(f"  time m={MEM_SIZE} n={N_DSV2LITE} bfloat16: kernel "
+          f"{t['ms']:.3f} ms; bound {t['bound_ms']:.3f} ms by "
+          f"{t['bound_by']}: the kernel at "
+          f"{100 * t['bound_ms'] / t['ms']:.1f}% of it", flush=True)
+    out["dsv2lite"] = t
+    return worst, out
 
 
 def streamed_m20(dev, gen):

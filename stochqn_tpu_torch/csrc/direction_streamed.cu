@@ -12,8 +12,9 @@
 // the H100's ~20 FLOP/byte float32 balance point.  W g has to be complete
 // before any d[j] can be written, so W is needed twice; what the card can
 // keep between the two uses is the shared memory of its SMs (30 MB on an
-// H100) and, less surely, its L2.  At n = 292,083 the float32 pairs are
-// 23.4 MB at m = 10 and 46.7 MB at m = 20.
+// H100) and its L2 (50 MB).  At n = 1,000,000 and m = 10 the float32 pairs
+// are 80 MB: a third parks in shared memory, and what L2 can hold of the
+// rest has to come back from L2, not from device memory.
 //
 // What the design does about it.  The TPU kernel walks its grid in order and
 // carries W g in VMEM from one grid step to the next; on Hopper blocks run in
@@ -24,23 +25,33 @@
 //   phase 0: where the block's columns of S, Y and g fit its shared memory,
 //     it copies them there with cp.async, 16 bytes a copy and all of them
 //     in flight at once, in the storage type (bfloat16 parks twice the
-//     columns).  Where they do not, they pass in a few large chunks of one
-//     size through a ring of kStages buffers, and the last kStages chunks
-//     stay.  One warp per row sums W[r, :] . g over what has arrived, each
-//     lane in a fixed order, and writes partials[r, b].
+//     columns).  Where they do not, the first `park` columns are copied
+//     first, into a buffer of their own, and stay; the others pass in
+//     chunks of about kChunkBytes through a ring of kStages buffers, and the
+//     last kStages chunks stay.  The chunks whose buffer is refilled
+//     ("gone") are read again in phase 1.  The last `l2_chunks` of them,
+//     sized from the card's L2, are copied under the normal L2 policy and
+//     everything else under evict_first, so that L2 still holds those at
+//     the grid barrier.  One warp per row sums W[r, :] . g over what has
+//     arrived, each lane in a fixed order, and writes partials[r, b].
 //   grid barrier (cooperative_groups::this_grid().sync()).
 //   phase 1: every block sums the partials over the blocks in the same fixed
 //     order (one warp per row), forms u = C (W g) itself, and writes its
-//     columns of d: the columns of the chunks that are gone straight from
-//     device memory, from the last one backwards (what L2 most likely still
-//     holds), a thread with 16 loads in flight; then the parked columns or
-//     the chunks the ring still holds from shared memory, a thread taking
-//     columns of different chunks at once.
+//     columns of d: the gone columns straight from global memory, the last
+//     one first: those L2 kept, under evict_first, so that they leave L2
+//     after this last use, then the older ones, from device memory; then
+//     the columns shared memory holds.
+//
+// Measured at n = 1,000,000, m = 10, float32 on an H100: copying the gone
+// chunks L2 keeps under evict_last instead of the normal policy gained
+// nothing, and their lines outlived the launch (reads of phase 1 under
+// evict_first do not demote them), taking L2 from the kernels after it.
 //
 // There is no cap on n: what does not fit the shared memory is re-read, and
 // a card with little shared memory parks little.  The blocks, the columns
-// per block, the parked columns, the ring and the scratch are worked out
-// here from the device's properties.
+// per block, the parked columns, the ring, the chunks left to L2 and the
+// scratch are worked out here from the device's properties.  No setting of
+// the L2 outlives the launch: the policies travel with its copies and loads.
 //
 // Rows are not 16-byte aligned: row r starts r * n elements after row 0, so
 // with an odd n every row has its own phase, and so has g.  A copy of a row
@@ -53,7 +64,10 @@
 // The sums and phase 1 read single elements at consecutive addresses.
 // Streaming the columns through registers instead (16-byte loads, the sums
 // kept per thread) was measured and was slower: a thread cannot keep enough
-// loads in flight.
+// loads in flight.  Bulk copies (cp.async.bulk, one per row segment of a
+// chunk, issued by one warp) were measured too and were slower at the
+// widths shared memory allows: their cost per copy held each step of the
+// ring to one chunk's latency.
 //
 // No atomics and a fixed order of every sum, so every run gives the same
 // bits.  W is never padded or copied; gamma is read through a device
@@ -71,6 +85,7 @@
 
 #include <cstdint>
 #include <mutex>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -82,6 +97,8 @@ constexpr int kMaxMem = 32;      // largest m (pairs) the kernel takes
 constexpr int kMaxRows = 2 * kMaxMem;
 constexpr int kRowsPerWarp = kMaxRows / kWarps;  // rows a warp sums
 constexpr int kStages = 3;       // buffers of the ring
+constexpr int kChunkBytes = 64 << 10;  // a chunk's bytes of W and g, about
+constexpr int kL2Percent = 75;   // share of the L2 the gone chunks take
 constexpr int kExpand = 4;       // columns a thread writes per step of phase 1
 constexpr int kMinCols = 1024;   // columns per block, at least, where n allows
 constexpr int kMaxDevices = 64;
@@ -124,29 +141,80 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+// The L2 policy of the copies and loads whose lines should leave L2 before
+// others: what shared memory keeps, and what L2 could not keep anyway.
+__device__ __forceinline__ uint64_t policy_evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(p));
+  return p;
+}
+
+// An element no thread writes during the launch: under the L2 policy pol
+// where kHinted, else a plain load.
+template <bool kHinted>
+__device__ __forceinline__ float read_once(const float* p, uint64_t pol) {
+  if constexpr (kHinted) {
+    float v;
+    asm volatile("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;"
+                 : "=f"(v)
+                 : "l"(p), "l"(pol));
+    return v;
+  } else {
+    return *p;
+  }
+}
+template <bool kHinted>
+__device__ __forceinline__ __nv_bfloat16 read_once(const __nv_bfloat16* p,
+                                                   uint64_t pol) {
+  if constexpr (kHinted) {
+    unsigned short v;
+    asm volatile("ld.global.nc.L2::cache_hint.b16 %0, [%1], %2;"
+                 : "=h"(v)
+                 : "l"(p), "l"(pol));
+    return __ushort_as_bfloat16(v);
+  } else {
+    return *p;
+  }
+}
+
 // One warp copies `width` elements from src to dst + mis, where mis is the
 // number of elements src lies past a 16-byte boundary and dst is 16-byte
-// aligned: whole aligned vectors with cp.async, from the boundary below src
-// to the one above src + width.  [lo, hi) is the tensor src belongs to; a
-// vector that would reach outside it is replaced by plain copies of the
-// segment's own elements.
+// aligned: whole aligned vectors with cp.async (under the L2 policy pol
+// where hinted), from the boundary below src to the one above src + width.
+// [lo, hi) is the tensor src belongs to; the first or the last vector may
+// reach outside it, and lane 0 copies the segment's own elements of such a
+// vector one by one.
 template <typename E>
 __device__ __forceinline__ void copy_segment(E* dst, const E* src, int mis,
                                              int width, const E* lo,
-                                             const E* hi, int lane) {
+                                             const E* hi, int lane,
+                                             uint64_t pol, bool hinted) {
   constexpr int V = 16 / static_cast<int>(sizeof(E));
   const E* base = src - mis;
   const int vectors = (mis + width + V - 1) / V;
-  for (int v = lane; v < vectors; v += 32) {
-    const E* p = base + v * V;
-    E* q = dst + v * V;
-    if (p >= lo && p + V <= hi) {
-      __pipeline_memcpy_async(q, p, 16);
-    } else {
+  const int first = base < lo ? 1 : 0;
+  const int last = base + vectors * V > hi ? vectors - 1 : vectors;
+  if (hinted) {
+    for (int v = first + lane; v < last; v += 32) {
+      asm volatile(
+          "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;" ::"r"(
+              static_cast<uint32_t>(__cvta_generic_to_shared(dst + v * V))),
+          "l"(base + v * V), "l"(pol)
+          : "memory");
+    }
+  } else {
+    for (int v = first + lane; v < last; v += 32) {
+      __pipeline_memcpy_async(dst + v * V, base + v * V, 16);
+    }
+  }
+  if (lane == 0) {
+    for (int v = 0; v < vectors; v += vectors > 1 ? vectors - 1 : 1) {
+      if (v >= first && v < last) continue;  // copied above
 #pragma unroll
       for (int i = 0; i < V; ++i) {
         const int e = v * V + i;
-        if (e >= mis && e < mis + width) q[i] = p[i];
+        if (e >= mis && e < mis + width) dst[e] = base[e];
       }
     }
   }
@@ -171,7 +239,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                      const float* __restrict__ cmat,
                      const float* __restrict__ gamma, float* __restrict__ d,
                      float* partials, int m, int64_t n, int64_t cols, int park,
-                     int chunk) {
+                     int chunk, int l2_chunks) {
   constexpr int VEC = 16 / static_cast<int>(sizeof(T));
   constexpr int ESIZE = static_cast<int>(sizeof(T));
   extern __shared__ __align__(16) unsigned char smem[];
@@ -249,15 +317,17 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // Copies the columns [c0, c0 + width) of every row and of g into a buffer
   // whose rows are ld elements long: one warp per row.
-  auto copy_columns = [&](unsigned char* buf, int ld, int64_t c0, int width) {
+  const uint64_t evict_first = policy_evict_first();
+  auto copy_columns = [&](unsigned char* buf, int ld, int64_t c0, int width,
+                          bool hinted) {
     for (int r = warp; r <= two_m; r += kWarps) {
       if (r < two_m) {
         const T* lo = r < m ? s : y;
         copy_segment<T>(rows_of(buf) + r * ld, row_of(r) + c0, mis[r], width,
-                        lo, lo + m * n, lane);
+                        lo, lo + m * n, lane, evict_first, hinted);
       } else {
         copy_segment<float>(g_of(buf, ld), gb + c0, mis[two_m], width, g,
-                            g + n, lane);
+                            g + n, lane, evict_first, hinted);
       }
     }
   };
@@ -265,9 +335,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int64_t w = rest - static_cast<int64_t>(k) * chunk;
     return w < chunk ? static_cast<int>(w) : chunk;
   };
+  // The chunks whose buffer is refilled, `gone` of them, are read again in
+  // phase 1.  The last `in_l2` of them are copied under the normal policy,
+  // and everything else under evict_first (it stays in shared memory, or L2
+  // could not hold it anyway), so that L2 still holds those at the barrier.
+  // Where nothing passes through the ring, all is copied as normal.
+  const int gone = chunks > kStages ? chunks - kStages : 0;
+  const int in_l2 = gone < l2_chunks ? gone : l2_chunks;
   auto copy_chunk = [&](int slot, int k) {  // chunk k into buffer `slot`
     copy_columns(ring + slot * ring_stride, ld_c,
-                 P + static_cast<int64_t>(k) * chunk, chunk_width(k));
+                 P + static_cast<int64_t>(k) * chunk, chunk_width(k),
+                 k < gone - in_l2 || k >= gone);
   };
 
   // A warp sums the rows warp + i * kWarps of W against g, a row at a time;
@@ -303,7 +381,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // Phase 0: the parked columns are one group of copies, every chunk one
   // more; groups land in the order they were committed.
-  if (P > 0) copy_columns(park_buf, ld_p, 0, P);
+  if (P > 0) copy_columns(park_buf, ld_p, 0, P, chunk > 0);
   __pipeline_commit();
   for (int k = 0; k < kStages - 1; ++k) {
     if (k < chunks) copy_chunk(k, k);
@@ -375,47 +453,59 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   constexpr int kStep = kExpand * kThreads;
-  const int held = chunks < kStages ? chunks : kStages;
-  const int gone = chunks - held;  // all of them `chunk` columns wide
-  const int64_t gone_cols = static_cast<int64_t>(gone) * chunk;
+  const int64_t gone_cols = static_cast<int64_t>(gone) * chunk;  // full
 
   // The columns that no buffer holds any more, [P, P + gone_cols), straight
-  // from device memory (L2 where it still has them), the last ones streamed
-  // first: a thread takes kGone columns kThreads apart and kGoneRows rows at
-  // a time, so that it has kGone * kGoneRows loads in flight.
-  constexpr int kGone = 2;
-  constexpr int kGoneRows = 8;
-  for (int64_t base = tid; base < gone_cols; base += kGone * kThreads) {
-    int64_t col[kGone];  // of the block's columns; past the end: the last
-    float t[kGone];
+  // from global memory, the last ones first: those L2 kept, under
+  // evict_first, so that they leave L2 after this last use, then the older
+  // ones, from device memory.  A thread takes kGone columns kThreads apart
+  // and kGoneRows rows at a time, so that it has kGone * kGoneRows loads in
+  // flight.
+  constexpr int kGone = 4;
+  constexpr int kGoneRows = 4;
+  auto gone_pass = [&](int64_t lo_col, int64_t hi_col, auto hinted) {
+    constexpr bool kHinted = decltype(hinted)::value;
+    const int64_t count = hi_col - lo_col;
+    for (int64_t base = tid; base < count; base += kGone * kThreads) {
+      int64_t col[kGone];  // of the block's columns; past the end: the last
+      float t[kGone];
 #pragma unroll
-    for (int i = 0; i < kGone; ++i) {
-      const int64_t back = base + i * kThreads;
-      col[i] = P + gone_cols - 1 - (back < gone_cols ? back : base);
-      t[i] = 0.f;
-    }
-    for (int r = 0; r < two_m; r += kGoneRows) {
-      T w[kGoneRows][kGone];
+      for (int i = 0; i < kGone; ++i) {
+        const int64_t back = base + i * kThreads;
+        col[i] = hi_col - 1 - (back < count ? back : base);
+        t[i] = 0.f;
+      }
+      for (int r = 0; r < two_m; r += kGoneRows) {
+        T w[kGoneRows][kGone];
 #pragma unroll
-      for (int j = 0; j < kGoneRows; ++j) {
-        const T* row = row_of(r + j < two_m ? r + j : 0);
+        for (int j = 0; j < kGoneRows; ++j) {
+          const T* row = row_of(r + j < two_m ? r + j : 0);
 #pragma unroll
-        for (int i = 0; i < kGone; ++i) w[j][i] = row[col[i]];
+          for (int i = 0; i < kGone; ++i) {
+            w[j][i] = read_once<kHinted>(row + col[i], evict_first);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kGoneRows; ++j) {
+          const float u = park_row[r + j].x;  // 0 past the last row
+#pragma unroll
+          for (int i = 0; i < kGone; ++i) {
+            t[i] = fmaf(u, to_f32(w[j][i]), t[i]);
+          }
+        }
       }
 #pragma unroll
-      for (int j = 0; j < kGoneRows; ++j) {
-        const float u = park_row[r + j].x;  // 0 past the last row
-#pragma unroll
-        for (int i = 0; i < kGone; ++i) t[i] = fmaf(u, to_f32(w[j][i]), t[i]);
+      for (int i = 0; i < kGone; ++i) {
+        if (base + i * kThreads < count) {
+          d[j0 + col[i]] =
+              fmaf(gam, read_once<kHinted>(gb + col[i], evict_first), t[i]);
+        }
       }
     }
-#pragma unroll
-    for (int i = 0; i < kGone; ++i) {
-      if (base + i * kThreads < gone_cols) {
-        d[j0 + col[i]] = fmaf(gam, gb[col[i]], t[i]);
-      }
-    }
-  }
+  };
+  const int64_t l2_lo = P + static_cast<int64_t>(gone - in_l2) * chunk;
+  gone_pass(l2_lo, P + gone_cols, std::true_type{});
+  gone_pass(static_cast<int64_t>(P), l2_lo, std::false_type{});
 
   // The columns that shared memory holds, `total` of them: a thread takes up
   // to kExpand of them kThreads apart, and the rows 4 at a time.  locate(i)
@@ -499,6 +589,7 @@ struct Card {
   bool usable;
   int sms;
   int smem;  // opt-in shared memory of a block, bytes
+  int l2;    // L2 cache, bytes
 };
 
 const Card& card() {
@@ -512,13 +603,15 @@ const Card& card() {
   const std::lock_guard<std::mutex> guard(lock);
   Card& cd = cards[dev];
   if (cd.ready) return cd;
-  int sms = 0, smem = 0, coop = 0;
+  int sms = 0, smem = 0, coop = 0, l2 = 0;
   bool ok =
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ==
           cudaSuccess &&
       cudaDeviceGetAttribute(&smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              dev) == cudaSuccess &&
       cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev) ==
+          cudaSuccess &&
+      cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev) ==
           cudaSuccess &&
       coop != 0 && sms >= 1 &&
       // a ring of the largest m with chunks of 32 columns has to fit
@@ -534,6 +627,7 @@ const Card& card() {
   }
   cd.sms = sms;
   cd.smem = smem;
+  cd.l2 = l2;
   cd.usable = ok;
   cd.ready = true;
   return cd;
@@ -541,13 +635,15 @@ const Card& card() {
 
 // The launch: blocks (at most one per SM, so that all are resident), columns
 // per block, parked columns per block, columns of a ring buffer (0: no
-// ring, everything parks) and the shared memory; blocks is 0 where the
-// arguments are out of range or the card cannot launch the kernel.
+// ring, everything parks), the gone chunks a block leaves to L2 and the
+// shared memory; blocks is 0 where the arguments are out of range or the
+// card cannot launch the kernel.
 struct Plan {
   int blocks;
   long long cols;
   int park;
   int chunk;
+  int l2_chunks;
   size_t smem;
 };
 
@@ -576,16 +672,30 @@ Plan plan(int m, long long n, bool bf16) {
     pl.smem = kHeadBytes + buffer_bytes(m, pl.park, esize);
     return pl;
   }
-  // It does not fit: nothing is parked for good, all columns pass through
-  // the ring in chunks of one size, and the last kStages of them stay.
+  // It does not fit: the ring takes chunks of about kChunkBytes (less where
+  // kStages of those do not fit), the parked columns the rest of the room,
+  // and L2 is left the gone chunks of all blocks that kL2Percent of it
+  // holds.
+  const long long per_col = 2 * m * esize + 4;  // bytes of W and g
   const long long cap = fits((room - buffer_bytes(m, 0, esize)) / kStages);
   if (cap < vec) return Plan{};
-  const long long chunks = (pl.cols + cap - 1) / cap;
-  pl.park = 0;
-  pl.chunk = static_cast<int>(((pl.cols + chunks - 1) / chunks + vec - 1) /
-                              vec * vec);
-  pl.smem = kHeadBytes + buffer_bytes(m, 0, esize) +
-            kStages * buffer_bytes(m, pl.chunk, esize);
+  long long chunk = kChunkBytes / per_col / vec * vec;
+  if (chunk > cap) chunk = cap;
+  if (chunk < vec) chunk = vec;
+  // chunks of one width as far as it goes, so that the last, which stays,
+  // is about as wide as the others
+  const long long rest = pl.cols - fits(room - kStages *
+                                        buffer_bytes(m, chunk, esize));
+  const long long chunks = (rest + chunk - 1) / chunk;
+  chunk = ((rest + chunks - 1) / chunks + vec - 1) / vec * vec;
+  const long long ring = kStages * buffer_bytes(m, chunk, esize);
+  pl.chunk = static_cast<int>(chunk);
+  pl.park = static_cast<int>(fits(room - ring));
+  const long long l2_chunks = static_cast<long long>(cd.l2) / 100 *
+                              kL2Percent / (pl.blocks * chunk * per_col);
+  pl.l2_chunks = static_cast<int>(l2_chunks < (1 << 30) ? l2_chunks
+                                                        : (1 << 30));
+  pl.smem = kHeadBytes + buffer_bytes(m, pl.park, esize) + ring;
   return pl;
 }
 
@@ -603,26 +713,31 @@ long long sqn_direction_streamed_scratch(int m, long long n, int storage_bf16) {
   return static_cast<long long>(plan(m, n, storage_bf16 != 0).blocks) * 2 * m;
 }
 
-// Columns of W that sqn_direction_streamed reads from device memory or L2
-// only once on the current device, of n: what stays in shared memory between
-// its two uses (the parked columns, and the chunks the ring holds last).
-long long sqn_direction_streamed_parked(int m, long long n, int storage_bf16) {
+// How a launch of sqn_direction_streamed on the current device treats the n
+// columns of W, written to split[0..2]: the columns that stay in shared
+// memory between the two uses (read from global memory once: the parked
+// columns and the chunks the ring holds last), those that phase 1 reads
+// again from L2, where phase 0 left them while it copied everything else
+// under evict_first, and those it reads again from device memory.  The three add up to n; all
+// are 0 where the card cannot launch the kernel.
+void sqn_direction_streamed_split(int m, long long n, int storage_bf16,
+                                  long long* split) {
   const Plan pl = plan(m, n, storage_bf16 != 0);
-  long long total = 0;
+  split[0] = split[1] = split[2] = 0;
   for (int b = 0; b < pl.blocks; ++b) {
     const long long left = n - b * pl.cols;
     const long long mine = left < pl.cols ? left : pl.cols;
     const long long parked = mine < pl.park ? mine : pl.park;
-    long long held = 0;
+    long long gone = 0;
     if (pl.chunk > 0) {
-      const long long rest = mine - parked;
-      const long long chunks = (rest + pl.chunk - 1) / pl.chunk;
-      const long long gone = chunks > kStages ? chunks - kStages : 0;
-      held = rest - gone * pl.chunk;
+      const long long chunks = (mine - parked + pl.chunk - 1) / pl.chunk;
+      gone = chunks > kStages ? chunks - kStages : 0;
     }
-    total += parked + held;
+    const long long in_l2 = gone < pl.l2_chunks ? gone : pl.l2_chunks;
+    split[0] += mine - gone * pl.chunk;
+    split[1] += in_l2 * pl.chunk;
+    split[2] += (gone - in_l2) * pl.chunk;
   }
-  return total;
 }
 
 // d = gamma * g + [S; Y]^T (C ([S; Y] g)).
@@ -640,8 +755,9 @@ int sqn_direction_streamed(const void* s, const void* y, int storage_bf16,
   int64_t cols = pl.cols;
   int park = pl.park;
   int chunk = pl.chunk;
-  void* args[] = {&s,       &y, &g,   &c,    &gamma, &d,
-                  &scratch, &m, &n64, &cols, &park,  &chunk};
+  int l2_chunks = pl.l2_chunks;
+  void* args[] = {&s, &y,   &g,    &c,    &gamma, &d,   &scratch,
+                  &m, &n64, &cols, &park, &chunk, &l2_chunks};
   const cudaError_t err = cudaLaunchCooperativeKernel(
       kernel_of(storage_bf16 != 0), dim3(pl.blocks), dim3(kThreads), args,
       pl.smem, static_cast<cudaStream_t>(stream));

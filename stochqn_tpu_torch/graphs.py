@@ -285,6 +285,7 @@ class _Graph:
         nodes = metrics.GraphNodes(cap)
         self.graph = torch.cuda.CUDAGraph()
         tlk.CAPTURED.clear()
+        tlk.CAPTURED_COUNTS.clear()
         comm.CAPTURED.clear()
         # No garbage collection while capturing: collecting another
         # trainer's graph destroys it, which CUDA refuses during a
@@ -315,15 +316,17 @@ class _Graph:
             if collecting:
                 gc.enable()
         self.launches = dict(tlk.CAPTURED)
+        self.counts = dict(tlk.CAPTURED_COUNTS)
         self.collectives = list(comm.CAPTURED)
         tlk.CAPTURED.clear()
+        tlk.CAPTURED_COUNTS.clear()
         comm.CAPTURED.clear()
 
     def replay(self) -> torch.Tensor:
         """One epoch on the family's buffers; returns the graph's infos
         (overwritten by the next replay)."""
         self.graph.replay()
-        tlk.count_replay(self.launches)
+        tlk.count_replay(self.launches, self.counts)
         comm.log_replay(self.collectives)
         self.replays += 1
         STATS["replays"] += 1

@@ -9,7 +9,8 @@ direction
 the Hopper ports of ``stochqn_tpu/ops/pallas/two_loop_kernel.py``'s
 ``direction_streamed`` (``csrc/direction_streamed.cu``: float32 or bfloat16
 pairs of any size; one cooperative launch that parks what fits the card's
-shared memory across a grid-wide barrier and reads the rest twice) and
+shared memory across a grid-wide barrier and reads the rest twice, the
+second time from L2 as far as the card's L2 holds it) and
 ``direction`` (``csrc/direction.cu``: one read of ``W``, all of it parked,
 float32 pairs, capped by the card's shared memory; see
 :func:`direction_fits`).
@@ -43,10 +44,15 @@ tensors go to its plain version, CUDA tensors to the kernel.  There is no
 fallback: a CUDA call that cannot launch the kernel raises.
 :data:`LAUNCHES`, :data:`DIRECTION_LAUNCHES`, :data:`PROJECT_LAUNCHES` and
 :data:`PROJECT_ADAQN_LAUNCHES` count kernel launches, so a run can show
-that its main path went through the kernels.  A wrapper called while its
-stream is captured into a CUDA graph launches nothing then: it records
-the launch in :data:`CAPTURED`, and the graph's owner counts it at every
-replay (:func:`count_replay`; :mod:`stochqn_tpu_torch.graphs`).
+that its main path went through the kernels.  Each launch of
+:func:`direction_streamed` also adds its split of ``W``'s bytes
+(:func:`direction_streamed_split`) to the port's counters
+``direction_parked_bytes``, ``direction_l2_held_bytes`` and
+``direction_reread_bytes`` (:mod:`stochqn_tpu_torch.utils.metrics`).  A
+wrapper called while its stream is captured into a CUDA graph launches
+nothing then: it records the launch in :data:`CAPTURED` and its bytes in
+:data:`CAPTURED_COUNTS`, and the graph's owner counts both at every replay
+(:func:`count_replay`; :mod:`stochqn_tpu_torch.graphs`).
 """
 from __future__ import annotations
 
@@ -62,6 +68,8 @@ from pathlib import Path
 
 import torch
 
+from stochqn_tpu_torch.utils import metrics
+
 # Kernel launches made by :func:`direction_streamed` (one per direction).
 LAUNCHES = 0
 # Kernel launches made by :func:`direction` (one per direction).
@@ -75,24 +83,36 @@ GROUPED_MM_LAUNCHES = 0
 # Launches recorded into the CUDA graph being captured, by counter name:
 # they run, and are counted, at each replay of the graph.
 CAPTURED: dict = {}
+# Bytes recorded into the CUDA graph being captured, by the name of the
+# counter of :data:`stochqn_tpu_torch.utils.metrics.COUNTERS` they add to
+# at each replay of the graph.
+CAPTURED_COUNTS: dict = {}
 _COUNTERS = ("LAUNCHES", "DIRECTION_LAUNCHES", "PROJECT_LAUNCHES",
              "PROJECT_ADAQN_LAUNCHES", "GROUPED_MM_LAUNCHES")
 
 
-def _launched(counter: str) -> None:
-    """Count one launch of a kernel, or record it in :data:`CAPTURED`
-    where the current stream is being captured."""
+def _launched(counter: str, **counts: int) -> None:
+    """Count one launch of a kernel and add ``counts`` to the port's
+    counters by name, or record both in :data:`CAPTURED` and
+    :data:`CAPTURED_COUNTS` where the current stream is being captured."""
     if torch.cuda.is_current_stream_capturing():
         CAPTURED[counter] = CAPTURED.get(counter, 0) + 1
+        for name, k in counts.items():
+            CAPTURED_COUNTS[name] = CAPTURED_COUNTS.get(name, 0) + k
     else:
         globals()[counter] += 1
+        for name, k in counts.items():
+            metrics.count(name, k)
 
 
-def count_replay(captured: dict) -> None:
+def count_replay(captured: dict, counts: dict = None) -> None:
     """Count the launches a graph holds (``captured``, as
-    :data:`CAPTURED` was after its capture) for one replay of it."""
+    :data:`CAPTURED` was after its capture) and add its ``counts`` (as
+    :data:`CAPTURED_COUNTS` was) for one replay of it."""
     for counter, k in captured.items():
         globals()[counter] += k
+    for name, k in (counts or {}).items():
+        metrics.count(name, k)
 
 
 def read_launches() -> dict:
@@ -204,19 +224,47 @@ def direction_streamed(s_mem: torch.Tensor, y_mem: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"direction_streamed: kernel launch failed with "
                            f"CUDA error {err}")
-    _launched("LAUNCHES")
+    col_bytes = 2 * m * s_mem.element_size()
+    parked, held, reread = _split(m, n, bf16, s_mem.device.index)
+    _launched("LAUNCHES", direction_parked_bytes=parked * col_bytes,
+              direction_l2_held_bytes=held * col_bytes,
+              direction_reread_bytes=reread * col_bytes)
     return d
+
+
+@functools.lru_cache(maxsize=None)
+def _split(m: int, n: int, bf16: int, device_index: int) -> tuple:
+    with torch.cuda.device(device_index):
+        split = (ctypes.c_longlong * 3)()
+        _library().sqn_direction_streamed_split(m, n, bf16, split)
+        return tuple(split)
+
+
+def direction_streamed_split(m: int, n: int, storage: torch.dtype,
+                             device: torch.device) -> dict:
+    """How a launch of :func:`direction_streamed` on the CUDA ``device``
+    treats the ``n`` columns of ``[2m, n]`` pairs stored as ``storage``,
+    worked out by the kernel's source from the device's properties:
+    ``parked``, the columns kept in shared memory between the kernel's two
+    uses of them (read from global memory once); ``l2_held``, those read
+    again from L2, where the first read left them while it copied the rest
+    under the L2 policy evict_first; ``reread``, those read again from
+    device memory.  The three add up to ``n``."""
+    device = torch.device(device)
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    parked, held, reread = _split(m, n, int(storage == torch.bfloat16),
+                                  index)
+    return {"parked": parked, "l2_held": held, "reread": reread}
 
 
 def direction_streamed_parked(m: int, n: int, storage: torch.dtype,
                               device: torch.device) -> int:
     """How many of the ``n`` columns of ``[2m, n]`` pairs stored as
     ``storage`` :func:`direction_streamed` keeps in shared memory between
-    its two uses of them on the CUDA ``device`` (the rest is read twice),
-    worked out by the kernel's source from the device's properties."""
-    with torch.cuda.device(device):
-        return int(_library().sqn_direction_streamed_parked(
-            m, n, int(storage == torch.bfloat16)))
+    its two uses of them on the CUDA ``device`` (the rest is read twice):
+    :func:`direction_streamed_split`'s ``parked``."""
+    return direction_streamed_split(m, n, storage, device)["parked"]
 
 
 def direction_ref(s_mem: torch.Tensor, y_mem: torch.Tensor,
@@ -473,10 +521,13 @@ def _library():
         fn.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, i32,
                        ctypes.c_longlong, ptr]
         fn.restype = i32
-        for fn in (lib.sqn_direction_streamed_scratch,
-                   lib.sqn_direction_streamed_parked):
-            fn.argtypes = [i32, ctypes.c_longlong, i32]
-            fn.restype = ctypes.c_longlong
+        fn = lib.sqn_direction_streamed_scratch
+        fn.argtypes = [i32, ctypes.c_longlong, i32]
+        fn.restype = ctypes.c_longlong
+        fn = lib.sqn_direction_streamed_split
+        fn.argtypes = [i32, ctypes.c_longlong, i32,
+                       ctypes.POINTER(ctypes.c_longlong)]
+        fn.restype = None
         fn = lib.adaqn_project
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, ctypes.c_longlong,
                        i32, ptr]

@@ -27,7 +27,13 @@ always on, at a call's granularity, never an iteration's:
   ``copy_back_bytes`` the bytes a replay copies back into them;
   ``fit_programs_reused`` and ``fit_programs_built`` the fused
   ``StochasticLogisticRegression`` fits off a mesh that took a cached
-  trainer and its captured graphs, and those that built one.
+  trainer and its captured graphs, and those that built one;
+  ``direction_parked_bytes``, ``direction_l2_held_bytes`` and
+  ``direction_reread_bytes`` the bytes of the pairs each launch of the
+  streamed direction kernel keeps in shared memory between its two reads,
+  reads a second time from L2, and reads a second time from device memory
+  (``ops.kernels.two_loop_kernel.direction_streamed_split``; a captured
+  launch counts at each replay).
 * :func:`label` ``(name)``: names the CUDA-graph nodes its body records
   while the port captures an epoch (:func:`capturing`); anywhere else it
   does nothing.  Each captured graph's map, ``(node_count, [(label, first,
@@ -80,7 +86,9 @@ COUNTERS: Dict[str, int] = {}
 # name -> int64 tensor on a device, added to by the captured epochs
 DEVICE_COUNTERS: Dict[str, torch.Tensor] = {}
 _NAMES = ("host_reads", "copy_in_bytes", "copy_back_bytes",
-          "fit_programs_reused", "fit_programs_built")
+          "fit_programs_reused", "fit_programs_built",
+          "direction_parked_bytes", "direction_l2_held_bytes",
+          "direction_reread_bytes")
 _lock = threading.Lock()
 _calls = itertools.count(1)         # the calls' sequence numbers
 

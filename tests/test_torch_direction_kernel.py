@@ -16,13 +16,16 @@ mod 4 (and mod 8 for bfloat16), since a row of the pair memory starts
 ``r * n`` elements after the first and the kernel copies each row in whole
 aligned 16-byte vectors, keeping the row's own offset; m up to the largest the kernels take; and n that
 the card's shared memory holds wholly, in part and hardly at all between
-the kernel's two uses of the pairs.
+the kernel's two uses of the pairs, on each side of every boundary of the
+kernel's plan: parked whole, parked in part with every re-read column
+marked to stay in L2, and with that mark capped by the card's L2.
 """
 import numpy as np
 import pytest
 import torch
 
 from stochqn_tpu_torch.ops.kernels import two_loop_kernel as tlk
+from stochqn_tpu_torch.utils import metrics
 
 RTOL, ATOL = 3e-5, 1e-4
 M = 4
@@ -114,12 +117,12 @@ def cuda_device():
 
 # (m, n): every remainder of n mod 8 at every m; the flagship n, which an
 # H100 parks wholly at m = 10 and in part at m = 20 and 32; an n of which it
-# parks an eighth.
+# parks an eighth; the Criteo cell's pairs, 80 MB in float32.
 CUDA_SHAPES = ([(m, n) for m in (1, 4, 10, 20, 32)
                 for n in (700, 900, 1000, 1500, 1501, 1502, 1503, 1504,
                           1505, 1506, 1507)]
                + [(m, 292_083) for m in (4, 10, 20, 32)]
-               + [(32, 1_000_003)])
+               + [(32, 1_000_003), (10, 1_000_000)])
 
 
 @pytest.mark.cuda
@@ -168,3 +171,79 @@ def test_bf16_gradient_matches_ref_on_cuda(cuda_device, n, storage):
                                rtol=RTOL, atol=ATOL)
     assert torch.equal(got, tlk.direction_streamed(s, y, g16.float(), c,
                                                    gamma))
+
+
+def test_replay_adds_the_captured_bytes():
+    """A graph's replay counts its launches and adds the bytes its capture
+    recorded to the port's counters."""
+    metrics.reset()
+    launches = tlk.LAUNCHES
+    tlk.count_replay({"LAUNCHES": 2}, {"direction_l2_held_bytes": 5,
+                                       "direction_reread_bytes": 3})
+    tlk.count_replay({"LAUNCHES": 2}, {"direction_l2_held_bytes": 5,
+                                       "direction_reread_bytes": 3})
+    counters = metrics.snapshot()["counters"]
+    assert tlk.LAUNCHES == launches + 4
+    assert (counters["direction_l2_held_bytes"],
+            counters["direction_reread_bytes"],
+            counters["direction_parked_bytes"]) == (10, 6, 0)
+    metrics.reset()
+
+
+def _first(pred, lo, hi):
+    """The least n in (lo, hi] with pred(n), pred false at lo and true at
+    hi (both monotone in n)."""
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (lo, mid) if pred(mid) else (mid, hi)
+    return hi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 10, 32])
+def test_kernel_on_each_side_of_the_plans_boundaries(cuda_device, m,
+                                                     storage):
+    """The plan's split of the columns adds up to n, and the kernel agrees
+    with its plain version and gives the same bits twice on each side of
+    where the pairs stop parking whole and where the columns read again
+    stop all being marked to stay in L2."""
+    def split(n):
+        return tlk.direction_streamed_split(m, n, storage, cuda_device)
+    top = 64_000_000 // m
+    whole = _first(lambda n: split(n)["parked"] < n, 1, top) - 1
+    capped = _first(lambda n: split(n)["reread"] > 0, whole, top)
+    sides = {whole: "whole", whole + 1: "held", capped - 1: "held",
+             capped: "capped"}
+    for n, kind in sides.items():
+        got = split(n)
+        assert sum(got.values()) == n
+        assert {"whole": got["parked"] == n,
+                "held": 0 < got["l2_held"] and got["reread"] == 0,
+                "capped": got["reread"] > 0}[kind], (n, kind, got)
+        args = _torch_args(*_inputs(n, m=m), storage, cuda_device)
+        d = tlk.direction_streamed(*args)
+        want = tlk.direction_streamed_ref(*args)
+        np.testing.assert_allclose(d.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=RTOL, atol=ATOL)
+        assert torch.equal(d, tlk.direction_streamed(*args))
+
+
+@pytest.mark.cuda
+def test_criteo_rereads_under_a_third_without_the_hint(cuda_device):
+    """At the Criteo cell's pairs (m = 10, n = 1,000,000, float32) under a
+    third of W is read again from device memory, and each launch adds its
+    split's bytes to the port's counters."""
+    m, n = 10, 1_000_000
+    split = tlk.direction_streamed_split(m, n, torch.float32, cuda_device)
+    assert sum(split.values()) == n and split["reread"] < n / 3
+    assert split["parked"] > 0 and split["l2_held"] > 0
+    args = _torch_args(*_inputs(n, m=m), torch.float32, cuda_device)
+    metrics.reset()
+    tlk.direction_streamed(*args)
+    tlk.direction_streamed(*args)
+    counters = metrics.snapshot()["counters"]
+    assert [counters[f"direction_{k}_bytes"] for k in
+            ("parked", "l2_held", "reread")] == [
+        2 * 2 * m * 4 * split[k] for k in ("parked", "l2_held", "reread")]
+    metrics.reset()
